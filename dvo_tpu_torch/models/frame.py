@@ -1,0 +1,161 @@
+"""Scene and Frame — ``dvo_tpu.models.frame`` ported to dataclasses of
+tensors.
+
+Pyramid convention as in the JAX package (reference frame.cpp:30-37):
+scenes are coarsest first; ``scenes[-1]`` is the base level, the input
+decimated by ``2**culls``.  Functions return new dataclasses and never
+write into a tensor they were given.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from dvo_tpu_torch import lie
+from dvo_tpu_torch.config import InitConfig
+from dvo_tpu_torch.ops.image import cull_image, cull_intrinsic, gradients
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """One pyramid level.  ``depth``/``sigma`` are None on a step's object
+    frame until promotion gives it a depth map; ``gx``/``gy``/``gmask`` are
+    None until ``with_gradients`` (only the reference keyframe's gradients
+    are ever read)."""
+
+    gray: torch.Tensor                      # (H, W) float32 in [0, 1]
+    mask: torch.Tensor                      # (H, W) bool
+    depth: Optional[torch.Tensor]           # (H, W) float32 [m]
+    sigma: Optional[torch.Tensor]           # (H, W) float32 [m]
+    gx: Optional[torch.Tensor]              # (H, W) central difference, not halved
+    gy: Optional[torch.Tensor]
+    gmask: Optional[torch.Tensor]           # (H, W) bool
+    K: torch.Tensor                         # (3, 3)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return tuple(self.gray.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class Frame:
+    """Pyramid + pose (reference frame.hpp:72-144).  ``frame_id`` is a
+    Python int: it is known on the host."""
+
+    scenes: Tuple[Scene, ...]   # coarsest first
+    xi: torch.Tensor            # (6,) world pose twist
+    relative_xi: torch.Tensor   # (6,) twist vs the reference keyframe
+    age: torch.Tensor           # (H, W) int32 at the base level
+    frame_id: int
+
+    @property
+    def base(self) -> Scene:
+        return self.scenes[-1]
+
+    @property
+    def levels(self) -> int:
+        return len(self.scenes)
+
+
+def _cull(x, t: int):
+    return None if x is None else cull_image(x, t)
+
+
+def _make_scene(gray, mask, depth, sigma, K, with_grads: bool) -> Scene:
+    if with_grads:
+        gx, gy, mx, my = gradients(gray, mask)
+        return Scene(gray, mask, depth, sigma, gx, gy, mx & my, K)
+    return Scene(gray, mask, depth, sigma, None, None, None, K)
+
+
+def _pyramid(gray, mask, depth, sigma, K, levels: int, with_grads: bool):
+    """Coarsest-first pyramid, every level re-culled from the base."""
+    return tuple(
+        _make_scene(
+            cull_image(gray, t), cull_image(mask, t), _cull(depth, t), _cull(sigma, t),
+            cull_intrinsic(K, t), with_grads,
+        )
+        for t in range(levels - 1, -1, -1)
+    )
+
+
+def normalize_gray(gray: torch.Tensor) -> torch.Tensor:
+    """uint8 [0, 255] -> float32 [0, 1]; float input passes through."""
+    if gray.dtype == torch.uint8:
+        return gray.to(torch.float32) * (1.0 / 255.0)
+    return gray
+
+
+def _frame(gray, mask, K, levels, frame_id, depth, sigma, with_grads) -> Frame:
+    h, w = gray.shape
+    dev = gray.device
+    return Frame(
+        scenes=_pyramid(gray, mask, depth, sigma, K, levels, with_grads),
+        xi=torch.zeros(6, dtype=torch.float32, device=dev),
+        relative_xi=torch.zeros(6, dtype=torch.float32, device=dev),
+        age=torch.zeros((h, w), dtype=torch.int32, device=dev),
+        frame_id=int(frame_id),
+    )
+
+
+def build_frame(gray, mask, K, levels: int, culls: int, frame_id,
+                init: InitConfig = InitConfig(),
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> Frame:
+    """Monocular frame with the noise bootstrap depth
+    max(mean + std * n, floor), sigma = init.sigma (frame.hpp:12-22).
+    ``n`` is ``noise`` (a standard-normal plane at the culled size) when
+    given, else drawn from ``generator``."""
+    gray = cull_image(normalize_gray(gray), culls)
+    mask = cull_image(mask, culls)
+    K = cull_intrinsic(K, culls)
+    h, w = gray.shape
+    if noise is None:
+        noise = torch.randn((h, w), generator=generator, device=gray.device)
+    depth = torch.clamp(init.depth_mean + init.depth_std * noise, min=init.depth_floor)
+    sigma = torch.full((h, w), init.sigma, dtype=torch.float32, device=gray.device)
+    return _frame(gray, mask, K, levels, frame_id, depth, sigma, with_grads=True)
+
+
+def build_tracking_frame(gray, mask, K, levels: int, culls: int, frame_id) -> Frame:
+    """A step's object frame: no depth and deferred gradients.  Its
+    bootstrap depth would be dead — promotion overwrites it with
+    ``propagate``'s output and nothing else reads it — so none is drawn."""
+    gray = cull_image(normalize_gray(gray), culls)
+    return _frame(gray, cull_image(mask, culls), cull_intrinsic(K, culls), levels,
+                  frame_id, None, None, with_grads=False)
+
+
+def with_gradients(frame: Frame) -> Frame:
+    """Fill in deferred gradient planes; scenes that have them pass through."""
+    scenes = []
+    for s in frame.scenes:
+        if s.gx is None:
+            gx, gy, mx, my = gradients(s.gray, s.mask)
+            s = dataclasses.replace(s, gx=gx, gy=gy, gmask=mx & my)
+        scenes.append(s)
+    return dataclasses.replace(frame, scenes=tuple(scenes))
+
+
+def with_pose(frame: Frame, relative_xi: torch.Tensor, ref_xi: torch.Tensor) -> Frame:
+    """updateXi: world pose = compose(ref pose, relative pose) (frame.cpp:7-14)."""
+    return dataclasses.replace(frame, relative_xi=relative_xi,
+                               xi=lie.compose(ref_xi, relative_xi))
+
+
+def with_depth(frame: Frame, depth, sigma=None, age=None) -> Frame:
+    """Re-derive every level's depth (and optionally sigma) from a new
+    base-level map by culling (frame.cpp:39-61)."""
+    scenes = tuple(
+        dataclasses.replace(
+            s,
+            depth=cull_image(depth, frame.levels - 1 - i),
+            sigma=cull_image(sigma, frame.levels - 1 - i) if sigma is not None else s.sigma,
+        )
+        for i, s in enumerate(frame.scenes)
+    )
+    return dataclasses.replace(frame, scenes=scenes,
+                               age=age if age is not None else frame.age)

@@ -1,0 +1,267 @@
+"""Monocular visual odometry — ``dvo_tpu.models.odometry`` (monocular part)
+ported: track -> pose -> map (promote or depth update) -> regularize per
+frame (reference system.hpp:44-74, mapper.cpp:16-33).
+
+Host syncs: exactly one per frame.  The JAX package picks promotion or
+depth update with ``lax.cond`` on device; here it is a Python branch on
+``need_new_keyframe`` (one ``bool()`` read of a device scalar per frame).
+Everything else — GN iterations, the solve, the mapping and the
+regulariser — is enqueued without reading anything back.
+
+Randomness is explicit: the first keyframe's bootstrap noise and the
+per-frame depth-filter reset planes come from a ``torch.Generator`` (or are
+passed in, which is how the parity tests feed both packages the same
+numbers).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from types import SimpleNamespace
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dvo_tpu_torch import lie
+from dvo_tpu_torch.config import DVOConfig
+from dvo_tpu_torch.models.frame import (
+    Frame,
+    Scene,
+    build_frame,
+    build_tracking_frame,
+    with_depth,
+    with_gradients,
+    with_pose,
+)
+from dvo_tpu_torch.models.history import KeyframeHistory, push, refresh_head
+from dvo_tpu_torch.models.mapper import (
+    DepthUpdateStats,
+    depth_update,
+    need_new_keyframe,
+    propagate,
+    regularize,
+)
+from dvo_tpu_torch.models.tracker import TrackResult, track
+from dvo_tpu_torch.ops.depth_filter import draw_reset_depth
+from dvo_tpu_torch.ops.image import cull_image, cull_intrinsic
+
+
+@dataclasses.dataclass(frozen=True)
+class VOState:
+    """Monocular VO state, resident on one device."""
+
+    history: KeyframeHistory
+    ref: Frame                   # current reference keyframe
+    generator: torch.Generator   # reset planes when none are passed
+    frame_count: int             # id of the next frame
+    prev_rel: torch.Tensor       # (6,) previous frame's twist vs the ref
+    vel: torch.Tensor            # (6,) last frame-to-frame twist
+
+
+@dataclasses.dataclass(frozen=True)
+class StepResult:
+    T_world: torch.Tensor        # (4, 4) world pose of this frame
+    relative_xi: torch.Tensor    # (6,) twist vs the reference keyframe
+    is_keyframe: torch.Tensor    # () bool
+    tracking: TrackResult
+    mapping: DepthUpdateStats
+
+
+def _check_cfg(cfg: DVOConfig) -> None:
+    if cfg.ba.enabled:
+        raise NotImplementedError("bundle adjustment is not ported to dvo_tpu_torch yet")
+
+
+def _generator(device, seed: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def monocular_init(gray, mask, K, cfg: DVOConfig = DVOConfig.monocular(), *,
+                   device=None, generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None) -> VOState:
+    """First frame becomes the keyframe with identity pose
+    (system.hpp:49-54).  Its bootstrap depth noise is ``noise`` (standard
+    normal, at the culled size) or is drawn from ``generator`` (default: a
+    new one seeded 0 on ``device``), which the state then keeps."""
+    _check_cfg(cfg)
+    gray, mask, K = (torch.as_tensor(x, device=device) for x in (gray, mask, K))
+    device = gray.device
+    generator = _generator(device, 0) if generator is None else generator
+    frame = build_frame(gray, mask, K, cfg.pyramid.levels, cfg.pyramid.culls, 0,
+                        cfg.init, generator=generator, noise=noise)
+    h, w = frame.base.shape
+    history = push(KeyframeHistory.create(cfg.mapper.history_capacity, h, w, device), frame)
+    zeros = torch.zeros(6, dtype=torch.float32, device=device)
+    return VOState(history=history, ref=frame, generator=generator, frame_count=1,
+                   prev_rel=zeros, vel=zeros)
+
+
+def monocular_step(state: VOState, gray, mask, K, cfg: DVOConfig = DVOConfig.monocular(),
+                   reset_depth: Optional[torch.Tensor] = None):
+    """One frame: track -> pose -> map -> regularize.  ``reset_depth`` is
+    the depth filter's reset plane at the base level; drawn from the
+    state's generator when absent.  Returns (state', StepResult)."""
+    _check_cfg(cfg)
+    device = state.ref.xi.device
+    gray, mask, K = (torch.as_tensor(x, device=device) for x in (gray, mask, K))
+    frame = build_tracking_frame(gray, mask, K, cfg.pyramid.levels, cfg.pyramid.culls,
+                                 state.frame_count)
+
+    # --- tracking (system.hpp:57-58) ---
+    xi0 = None
+    if cfg.tracker.warm_start:
+        xi0 = lie.compose(state.prev_rel, state.vel)
+        xi0 = torch.where(torch.linalg.vector_norm(xi0) < cfg.tracker.warm_start_max_norm,
+                          xi0, 0.0)
+    tr = track(frame, state.ref, cfg.tracker, xi0=xi0)
+    frame = with_pose(frame, tr.xi, state.ref.xi)
+    vel = lie.compose(-state.prev_rel, tr.xi)
+
+    # --- mapping (mapper.cpp:16-33): the step's one host sync ---
+    need_kf = bool(need_new_keyframe(tr.xi, frame.frame_id, state.ref.frame_id, cfg.mapper))
+    base = state.ref.base
+    if need_kf:
+        d, s, age = propagate(base.depth, base.sigma, state.ref.age, frame.relative_xi,
+                              base.K, cfg.mapper, cfg.init)
+        ref = with_gradients(with_depth(frame, d, s, age))
+        history = push(refresh_head(state.history, state.ref), ref)
+        stats = DepthUpdateStats.zero(device)
+    else:
+        if reset_depth is None:
+            reset_depth = draw_reset_depth(base.shape, cfg.mapper.depth_filter,
+                                           state.generator, device)
+        d, s, age, stats = depth_update(
+            frame.base, frame.xi, frame.relative_xi, base.depth, base.sigma,
+            state.ref.age, state.history, reset_depth, cfg.mapper,
+        )
+        ref = with_depth(state.ref, d, s, age)
+        history = state.history
+
+    # --- regularize the reference keyframe (mapper.cpp:30,139-144) ---
+    ref = with_depth(ref, regularize(ref.base.depth, ref.base.sigma, cfg.mapper))
+
+    new_state = VOState(
+        history=history, ref=ref, generator=state.generator,
+        frame_count=state.frame_count + 1,
+        prev_rel=torch.zeros_like(tr.xi) if need_kf else tr.xi,
+        vel=vel,
+    )
+    result = StepResult(
+        T_world=lie.se3_exp(frame.xi),
+        relative_xi=tr.xi,
+        is_keyframe=torch.full((), need_kf, dtype=torch.bool, device=device),
+        tracking=tr,
+        mapping=stats,
+    )
+    return new_state, result
+
+
+def _cull_chunk(cfg: DVOConfig, K, *stacks):
+    """Decimate a whole (N, H, W) chunk by 2**culls up front.
+    Returns (cfg with culls=0, culled K, culled stacks)."""
+    culls = cfg.pyramid.culls
+    if not culls:
+        return cfg, K, stacks
+    cfg = dataclasses.replace(cfg, pyramid=dataclasses.replace(cfg.pyramid, culls=0))
+    return cfg, cull_intrinsic(K, culls), tuple(cull_image(s, culls) for s in stacks)
+
+
+def _stack(items):
+    """Stack a list of same-shaped dataclasses of tensors field by field."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    return type(first)(**{f.name: _stack([getattr(i, f.name) for i in items])
+                          for f in dataclasses.fields(first)})
+
+
+def monocular_run(state: VOState, grays, masks, K, cfg: DVOConfig = DVOConfig.monocular(),
+                  reset_depths: Optional[torch.Tensor] = None):
+    """Run ``monocular_step`` over a chunk of frames (grays: (N, H, W),
+    uint8 or float; masks: (N, H, W) or one (H, W) mask for all).
+    ``reset_depths`` (N, h, w) at the base level are the per-frame reset
+    planes; drawn from the state's generator when absent.  Returns
+    (state', StepResult with a leading N axis on every field)."""
+    device = state.ref.xi.device
+    grays, masks, K = (torch.as_tensor(x, device=device) for x in (grays, masks, K))
+    if reset_depths is not None:
+        reset_depths = torch.as_tensor(reset_depths, device=device)
+    cfg, K, (grays, masks) = _cull_chunk(cfg, K, grays, masks)
+    results = []
+    for i in range(grays.shape[0]):
+        mask = masks if masks.dim() == 2 else masks[i]
+        reset = None if reset_depths is None else reset_depths[i]
+        state, res = monocular_step(state, grays[i], mask, K, cfg, reset)
+        results.append(res)
+    return state, _stack(results)
+
+
+# ----------------------------------------------------------- state exchange
+
+_RING_PLANES = tuple(f.name for f in dataclasses.fields(KeyframeHistory)
+                     if f.name not in ("head", "count"))
+
+
+def _tensor(x, device, dtype=None):
+    return None if x is None else torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _scene_from(obj, device) -> Scene:
+    return Scene(**{f.name: _tensor(getattr(obj, f.name), device)
+                    for f in dataclasses.fields(Scene)})
+
+
+def frame_from_reference(obj, device) -> Frame:
+    """The port's ``Frame`` on ``device`` from a ``dvo_tpu`` Frame with
+    numpy leaves (attributes only; no jax import)."""
+    return Frame(
+        scenes=tuple(_scene_from(s, device) for s in obj.scenes),
+        xi=_tensor(obj.xi, device), relative_xi=_tensor(obj.relative_xi, device),
+        age=_tensor(obj.age, device, torch.int32), frame_id=int(obj.frame_id),
+    )
+
+
+def state_from_reference(obj, device, generator: Optional[torch.Generator] = None) -> VOState:
+    """The port's ``VOState`` on ``device`` from a ``dvo_tpu`` VOState whose
+    leaves are numpy arrays (``jax.tree.map(np.asarray, state)``) or from
+    ``state_to_numpy``'s output.  Walks attributes only, so it never
+    imports jax.  The PRNG key is not carried: the new state draws from
+    ``generator`` (default: a new one seeded 0 on ``device``)."""
+    device = torch.device(device)
+    h = obj.history
+    history = KeyframeHistory(
+        **{name: _tensor(getattr(h, name), device) for name in _RING_PLANES},
+        head=int(h.head), count=int(h.count),
+    )
+    return VOState(
+        history=history, ref=frame_from_reference(obj.ref, device),
+        generator=_generator(device, 0) if generator is None else generator,
+        frame_count=int(obj.frame_count),
+        prev_rel=_tensor(obj.prev_rel, device), vel=_tensor(obj.vel, device),
+    )
+
+
+def _numpy(x):
+    return None if x is None else x.detach().cpu().numpy()
+
+
+def state_to_numpy(state: VOState) -> SimpleNamespace:
+    """The reverse of ``state_from_reference``: the same attribute tree with
+    numpy leaves (the generator is not carried)."""
+    h, r = state.history, state.ref
+    return SimpleNamespace(
+        history=SimpleNamespace(
+            **{name: _numpy(getattr(h, name)) for name in _RING_PLANES},
+            head=np.int32(h.head), count=np.int32(h.count),
+        ),
+        ref=SimpleNamespace(
+            scenes=tuple(SimpleNamespace(**{f.name: _numpy(getattr(s, f.name))
+                                            for f in dataclasses.fields(s)})
+                         for s in r.scenes),
+            xi=_numpy(r.xi), relative_xi=_numpy(r.relative_xi), age=_numpy(r.age),
+            frame_id=np.int32(r.frame_id),
+        ),
+        frame_count=np.int32(state.frame_count),
+        prev_rel=_numpy(state.prev_rel), vel=_numpy(state.vel),
+    )

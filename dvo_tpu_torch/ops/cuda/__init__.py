@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels for Hopper, one module each (``gn``,
+``epipolar``, ``regularize``), built and loaded by ``_build``."""
