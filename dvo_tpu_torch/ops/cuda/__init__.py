@@ -1,2 +1,3 @@
 """Hand-written CUDA kernels for Hopper, one module each (``gn``,
-``epipolar``, ``regularize``), built and loaded by ``_build``."""
+``epipolar``, ``regularize``, ``framebuild``), built and loaded by
+``_build``."""

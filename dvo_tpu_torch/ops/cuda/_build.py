@@ -36,7 +36,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 
 # Kernel launches since the last ``reset_launches``: each wrapper adds one
 # where it launches its kernel, and nowhere else.
-LAUNCHES = {"gn": 0, "epipolar": 0, "regularize": 0}
+LAUNCHES = {"gn": 0, "epipolar": 0, "regularize": 0, "framebuild": 0}
 
 _lock = threading.Lock()
 _library = None
@@ -50,6 +50,7 @@ _SIGNATURES = {
     "dvo_regularize": ([_P] * 3 + [_I, _I, _F, _F, _P], _I),
     "dvo_epipolar_num_blocks": ([_I], _I),
     "dvo_epipolar": ([_P] * 9 + [_I, _I, _I, _I] + [_F] * 10 + [_P], _I),
+    "dvo_framebuild": ([_P] * 9 + [_I] * 5 + [_P], _I),
 }
 
 

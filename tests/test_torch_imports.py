@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from dvo_tpu_torch.config import MapperConfig, TrackerConfig, resolve_device
-from dvo_tpu_torch.ops.cuda import _build, epipolar, gn, regularize
+from dvo_tpu_torch.ops.cuda import _build, epipolar, framebuild, gn, regularize
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -44,7 +44,7 @@ def test_build_command_targets_sm90a_in_ignored_dir(monkeypatch):
     assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
     assert "-shared" in cmd and "-fmad=false" in cmd and "--use_fast_math" not in cmd
     assert {Path(c).name for c in cmd if c.endswith(".cu")} == {
-        "gn.cu", "epipolar.cu", "regularize.cu"}
+        "gn.cu", "epipolar.cu", "regularize.cu", "framebuild.cu"}
     assert Path(cmd[cmd.index("-o") + 1]).parent == _build.BUILD_DIR
     ignored = (REPO / ".gitignore").read_text().split()
     assert _build.BUILD_DIR.relative_to(REPO).as_posix() + "/" in ignored
@@ -102,10 +102,39 @@ def _reg_inputs(rng, h=10, w=12):
             MapperConfig())
 
 
+def _build_inputs(rng, h=11, w=13):
+    return (torch.from_numpy(rng.random((h, w), np.float32)),
+            torch.from_numpy(rng.random((h, w)) > 0.1),
+            torch.from_numpy(rng.random((h, w), np.float32) + 0.5),
+            torch.from_numpy(rng.random((h, w), np.float32) * 0.3), 3)
+
+
+def _pair_inputs(rng):
+    _, _, d, s, levels = _build_inputs(rng)
+    return d, s, levels
+
+
+def _flat(out):
+    """Tensors of a kernel's output, in order (tuples, lists, per-level dicts)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in _flat(v)]
+    if isinstance(out, (tuple, list)):
+        return [t for v in out for t in _flat(v)]
+    return []
+
+
 @pytest.mark.parametrize("name,wrapper,plain,make", [
     ("gn", gn.gn_terms, gn.gn_terms_plain, _gn_inputs),
     ("epipolar", epipolar.epipolar_update, epipolar.epipolar_update_plain, _epi_inputs),
     ("regularize", regularize.regularize, regularize.regularize_plain, _reg_inputs),
+    ("framebuild", framebuild.build_pyramid_planes, framebuild.build_pyramid_planes_plain,
+     _build_inputs),
+    ("framebuild_pair", framebuild.cull_pyramid_pair, framebuild.cull_pyramid_pair_plain,
+     _pair_inputs),
+    ("framebuild_one", framebuild.cull_pyramid_one, framebuild.cull_pyramid_one_plain,
+     lambda rng: _pair_inputs(rng)[::2]),
 ])
 def test_cpu_tensors_take_the_plain_path(name, wrapper, plain, make, rng, monkeypatch):
     def no_cuda(*_, **__):
@@ -115,11 +144,11 @@ def test_cpu_tensors_take_the_plain_path(name, wrapper, plain, make, rng, monkey
     monkeypatch.setattr(ctypes, "CDLL", no_cuda)
     _build.reset_launches()
     args = make(rng)
-    got, want = wrapper(*args), plain(*args)
-    for a, b in zip(got if isinstance(got, tuple) else (got,),
-                    want if isinstance(want, tuple) else (want,)):
+    got, want = _flat(wrapper(*args)), _flat(plain(*args))
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert _build.LAUNCHES == {"gn": 0, "epipolar": 0, "regularize": 0}
+    assert _build.LAUNCHES == {"gn": 0, "epipolar": 0, "regularize": 0, "framebuild": 0}
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -131,3 +160,26 @@ def test_cpu_tensors_take_the_plain_path(name, wrapper, plain, make, rng, monkey
 def test_kernel_inputs_are_checked(bad, match):
     with pytest.raises(ValueError, match=match):
         _build.require(bad, "x", torch.float32, (4, 5), torch.device("cpu"))
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda g, m, d, s: framebuild.build_pyramid_planes(g.double(), m, d, s, 3), "dtype"),
+    (lambda g, m, d, s: framebuild.build_pyramid_planes(g, m.float(), d, s, 3), "mask: dtype"),
+    (lambda g, m, d, s: framebuild.build_pyramid_planes(g, m, d[:, :-1], s, 3), "shape"),
+    (lambda g, m, d, s: framebuild.build_pyramid_planes(g, m, d, s.T.contiguous().T, 3),
+     "contiguous"),
+    (lambda g, m, d, s: framebuild.cull_pyramid_pair(d, s[1:], 3), "shape"),
+    (lambda g, m, d, s: framebuild.cull_pyramid_one(d.half(), 3), "dtype"),
+    (lambda g, m, d, s: framebuild.cull_pyramid_one(d, 0), "levels"),
+])
+def test_framebuild_launch_checks_its_inputs(call, match, rng, monkeypatch):
+    """On the launch route every input is checked before the library is
+    touched (the kernel takes raw pointers)."""
+    def no_library():
+        raise AssertionError("reached the library with a bad input")
+
+    monkeypatch.setattr(framebuild, "resolve_device", lambda _: "cuda")
+    monkeypatch.setattr(_build, "library", no_library)
+    g, m, d, s, _ = _build_inputs(rng, 12, 12)
+    with pytest.raises(ValueError, match=match):
+        call(g, m, d, s)
