@@ -54,28 +54,39 @@ def bilinear_dense(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
     return top * (1.0 - fy) + bot * fy, in0
 
 
+def _pick(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """``img[yi, xi]``; an (N, H, W) stack is indexed per leading entry of
+    the (N, ...) coordinates (the batch axis ``jax.vmap`` would add)."""
+    if img.dim() == 2:
+        return img[yi, xi]
+    b = torch.arange(img.shape[0], device=img.device).view(-1, *([1] * (yi.dim() - 1)))
+    return img[b, yi, xi]
+
+
 def bilinear_masked(img: torch.Tensor, mask: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
     """getSubpixel semantics: corners on invalid pixels take the nearest
     valid corner in the cyclic order (x0,y0), (x1,y0), (x0,y1), (x1,y1);
-    all four invalid -> invalid sample.  Returns (values, valid)."""
+    all four invalid -> invalid sample.  ``img`` and ``mask`` are (H, W)
+    or, with (N, ...) coordinates, (N, H, W) stacks.  Returns (values,
+    valid)."""
     h, w = img.shape[-2], img.shape[-1]
     x0, y0, fx, fy, in0, in_x1, in_y1 = corners(x, y, w, h)
     x0c, x1c, y0c, y1c = clipped_corners(x0, y0, w, h)
 
-    g00 = img[y0c, x0c]
-    m00 = mask[y0c, x0c]
+    g00 = _pick(img, y0c, x0c)
+    m00 = _pick(mask, y0c, x0c)
     in3 = in_x1 & in_y1
     g = [
         g00,
-        torch.where(in_x1, img[y0c, x1c], g00),
-        torch.where(in_y1, img[y1c, x0c], g00),
-        torch.where(in3, img[y1c, x1c], g00),
+        torch.where(in_x1, _pick(img, y0c, x1c), g00),
+        torch.where(in_y1, _pick(img, y1c, x0c), g00),
+        torch.where(in3, _pick(img, y1c, x1c), g00),
     ]
     v = [
         in0 & m00,
-        in0 & torch.where(in_x1, mask[y0c, x1c], m00),
-        in0 & torch.where(in_y1, mask[y1c, x0c], m00),
-        in0 & torch.where(in3, mask[y1c, x1c], m00),
+        in0 & torch.where(in_x1, _pick(mask, y0c, x1c), m00),
+        in0 & torch.where(in_y1, _pick(mask, y1c, x0c), m00),
+        in0 & torch.where(in3, _pick(mask, y1c, x1c), m00),
     ]
     g = [torch.where(vi, gi, 0.0) for gi, vi in zip(g, v)]
 

@@ -52,3 +52,23 @@ def warp_image(xi, gray, gray_mask, depth, K):
     vals, valid = bilinear_masked(gray, gray_mask, warped_xy[..., 0], warped_xy[..., 1])
     mask = (torch.abs(depth) >= EPSILON) & valid & in_front
     return torch.where(mask, vals, 0.0), mask
+
+
+def map_depth_to_gray(depth, gray, gray_mask, rgb_K, depth_K, inv_T,
+                      sigma_valid: float = 0.1, sigma_invalid: float = 1.0):
+    """Register the color camera's gray into the depth camera's frame
+    (transform.cpp:53-78): back-project each depth pixel with ``depth_K``,
+    move it by ``inv_T``, project with ``rgb_K`` and sample ``gray``; sigma
+    is ``sigma_valid`` where a valid sample landed, ``sigma_invalid``
+    elsewhere.  ``depth`` (H, W) with ``gray`` (Hg, Wg), or a chunk:
+    ``depth`` (N, H, W) with ``gray`` (N, Hg, Wg) and ``gray_mask`` (Hg, Wg)
+    or (N, Hg, Wg).  Returns (mapped_gray, mapped_mask, sigma)."""
+    h, w = depth.shape[-2:]
+    xs, ys = pixel_grid(h, w, device=depth.device)
+    xy = torch.stack([xs, ys], dim=-1)
+    pts = lie.transform(inv_T, back_project(depth_K, xy, depth))
+    warped_xy, in_front = project(rgb_K, pts)
+    vals, valid = bilinear_masked(gray, gray_mask, warped_xy[..., 0], warped_xy[..., 1])
+    mask = (torch.abs(depth) >= EPSILON) & valid & in_front
+    sigma = torch.where(mask, sigma_valid, sigma_invalid).to(torch.float32)
+    return torch.where(mask, vals, 0.0), mask, sigma

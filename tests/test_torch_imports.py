@@ -29,12 +29,13 @@ def test_port_imports_without_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "assert 'dvo_tpu_torch.models.odometry' in names and 'dvo_tpu_torch.ops.cuda.gn' in names\n"
+        "assert 'dvo_tpu_torch.run' in names and 'dvo_tpu_torch.utils.runner' in names\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 26
 
 
 def test_build_command_targets_sm90a_in_ignored_dir(monkeypatch):

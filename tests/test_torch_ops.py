@@ -1,6 +1,7 @@
 """``dvo_tpu_torch.ops`` against ``dvo_tpu.ops`` on the same inputs: image
 decimation and gradients, both bilinear samplers (mask borders and
-out-of-range corners included), the warp geometry and the depth filter.
+out-of-range corners included), the warp geometry, the Kinect
+registration and the depth filter.
 
 Tolerances: decimation, gradients, masks and validity flags are exact.
 Sampled and warped values agree to 1e-5 (float32 on both sides; the only
@@ -125,6 +126,51 @@ def test_warp_image_matches(rng, xi):
     assert np.mean(tm.numpy() != np.asarray(jm)) <= 0.002
     same = tm.numpy() == np.asarray(jm)
     np.testing.assert_allclose(tv.numpy()[same], np.asarray(jv)[same], rtol=1e-4, atol=1e-4)
+
+
+def _kinect_pair(rng, n=None, h=12, w=16):
+    """Depth (with holes) at the depth camera's size, color gray at twice
+    it with a border mask, and the two intrinsics."""
+    lead = () if n is None else (n,)
+    depth = rng.uniform(0.5, 3.0, lead + (h, w)).astype(np.float32)
+    depth[rng.random(depth.shape) < 0.1] = 0.0
+    gray = rng.random(lead + (2 * h, 2 * w), np.float32)
+    gmask = rng.random((2 * h, 2 * w)) > 0.1
+    K_d = np.array([[14.0, 0, w / 2], [0, 14.0, h / 2], [0, 0, 1]], np.float32)
+    K_c = np.array([[28.0, 0, w], [0, 28.0, h], [0, 0, 1]], np.float32)
+    return depth, gray, gmask, K_c, K_d
+
+
+@pytest.mark.parametrize("xi", [[0.0] * 6, [-0.052, 0.003, 0.001, 0.01, -0.02, 0.005]],
+                         ids=["identity", "baseline"])
+@pytest.mark.parametrize("sigmas", [(0.1, 1.0), (0.05, 2.0)])
+def test_map_depth_to_gray_matches(rng, xi, sigmas):
+    """Kinect registration: values within 1e-5, masks and sigmas equal."""
+    from dvo_tpu import lie as jlie
+
+    depth, gray, gmask, K_c, K_d = _kinect_pair(rng)
+    inv_T = np.asarray(jlie.se3_exp(jnp.asarray(xi, jnp.float32)))
+    args = (depth, gray, gmask, K_c, K_d, inv_T)
+    jv, jm, js = jwarp.map_depth_to_gray(*(jnp.asarray(a) for a in args), *sigmas)
+    tv, tm, ts = twarp.map_depth_to_gray(*(_t(a) for a in args), *sigmas)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+    assert 0 < tm.numpy().mean() < 1 and ts.dtype == torch.float32
+
+
+def test_map_depth_to_gray_batches_like_frames(rng):
+    """A chunk registered in one batched call equals its frames registered
+    one by one, bit for bit (one (H, W) color mask for all)."""
+    depth, gray, gmask, K_c, K_d = _kinect_pair(rng, n=3)
+    inv_T = np.eye(4, dtype=np.float32)
+    inv_T[0, 3] = -0.05
+    consts = (_t(gmask), _t(K_c), _t(K_d), _t(inv_T))
+    batched = twarp.map_depth_to_gray(_t(depth), _t(gray), *consts)
+    for i in range(3):
+        single = twarp.map_depth_to_gray(_t(depth[i]), _t(gray[i]), *consts)
+        for a, b in zip(batched, single):
+            torch.testing.assert_close(a[i], b, rtol=0, atol=0)
 
 
 def test_depth_filter_matches(rng):
