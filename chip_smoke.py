@@ -9,30 +9,40 @@ Phases, one line each (or a few):
   1. device   — the card's name and power limit (nvidia-smi); TF32 off.
   2. build    — compile ``dvo_tpu_torch/csrc/*.cu`` with nvcc (first use).
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                on inputs from a real run at the paths' shapes: GN at 30x40,
-                60x80 and 120x160 (mono) and at 27x32, 53x64, 106x128 and
-                212x256 (RGB-D), epipolar with the full 8-slot ring and
+                on inputs from a real run at the paths' shapes: the GN step
+                (``gn``) and the GN level loop (``gn_level``: xi, statistics,
+                equal ``iterations`` and counts, the same bits on a second
+                run, a level with no valid pixel; timed against the plain
+                loop and the stepwise loop, one ``gn`` launch per step) at
+                30x40, 60x80 and 120x160 (mono) and at 27x32, 53x64, 106x128
+                and 212x256 (RGB-D), epipolar with the full 8-slot ring and
                 regularize at 120x160, and the frame build (held equal with
                 ``torch.equal``) for the RGB-D build and one plane at
                 212x256 x 4 levels and, at 120x160 x 3, the mono tracking
                 build, a build with depth, the depth/sigma pair and one
                 plane.  All of it but the RGB-D part again at Kinect mono's
                 shapes (106x128 x 3), on a ``monocular_init_with_depth``
-                state of the RGB-D frames run until its ring is full.  Times
-                from CUDA events.
+                state of the RGB-D frames run until its ring is full.  Call
+                times from CUDA events, device times from ``torch.profiler``;
+                each kernel's bound from its ``work()`` on these inputs.
   4. main     — ``monocular_init`` + ``monocular_run`` with
                 ``DVOConfig.monocular()`` on 48 synthetic 640x480 uint8
-                frames (chunks of 24); every kernel must have launched.
+                frames (chunks of 24); every kernel of the path must have
+                launched, ``gn_level`` three times per frame.  Then the same
+                run with the stepwise GN loop, twice, and with the level
+                kernel again (A, B, B, A): ms/frame of each, and device ops
+                per frame of both from ``torch.profiler``.
   5. cpu      — the first 8 frames again on the CPU (plain versions, same
                 bootstrap noise and reset planes); poses and keyframe flags
                 must agree with the CUDA run.
   6. rgbd     — ``rgbd_init`` + ``rgbd_run_raw`` with ``DVOConfig.rgbd()``
                 on 64 synthetic 512x424 frames (uint8 gray, uint16 depth
                 counts with holes) in one chunk; every twist must recover the
-                step; GN and the frame build must have launched; the first 8
-                frames again on the CPU must agree.
+                step; ``gn_level`` (four per frame) and the frame build must
+                have launched; the first 8 frames again on the CPU must
+                agree.  Then A, B, B, A and the profiles as in phase 4.
   7. monodepth — ``monocular_init_with_depth`` + ``monocular_run`` on 12
-                640x480 frames; all four kernels must have launched.
+                640x480 frames; the path's four kernels must have launched.
   8. syncs    — host syncs per frame under ``set_sync_debug_mode``: none
                 on the RGB-D path, one (the keyframe branch) on the mono one.
   9. cli      — ``python -m dvo_tpu_torch.run`` (its ``main``, in this
@@ -106,6 +116,18 @@ KINECT_WARM = 8         # frames per run while the Kinect-mono ring fills
 # strict gate.
 GN_REL_TOL = 1e-4        # max |dH|, |dg|, |drsum| over the plain value's max
 GN_COUNT_TOL = 0.001     # share of pixels whose gate may flip
+# The GN level loop against gn_level_plain.  The kernel's pixels round as the
+# plain version's; its sums run in another order, its 6x6 Cholesky solve is
+# not cuSOLVER's and its 3x3 products are not cuBLAS's, so each step differs
+# by float noise, carried through up to 15 steps (measured 3.4e-7 on xi at
+# 27x32 over 15 steps that never converge).  ``iterations`` and the valid
+# counts must be equal: a step whose update norm sits within float noise of
+# the threshold could flip them, and would fail here.
+GN_LEVEL_XI_TOL = 5e-6   # max |d xi|
+GN_LEVEL_STAT_TOL = 1e-3  # residuals and update norms, over the plain maximum
+SLOW_REPS = 5            # timing repeats of the plain loop and the stepwise loop
+PROFILE_FRAMES = 4       # frames per torch.profiler window
+PROFILE_TRIES = 4        # windows taken before a profile counts as lost
 MAP_VALUE_TOL = 1e-5     # per-pixel |d| <= tol * (1 + |d_plain|) ...
 MAP_SHARE = 0.999        # ... on at least this share of pixels
 STATS_TOL = 0.01         # epipolar counts within 1% (or 2 pixels)
@@ -155,6 +177,52 @@ def timed(fn, reps: int = 30, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_profile(fn, calls: int = 1, whole: bool = False):
+    """``fn()`` ``calls`` times under ``torch.profiler``: (device ops per
+    call, device-busy microseconds per call), from the CUDA-side events
+    (kernels, copies and memsets).  The profiler can lose the window's first
+    event, and now and then a whole window: with ``whole`` (a call that
+    issues the same few ops every time) the count is rounded up to a whole
+    number and the time is the mean event's times that count, and a window
+    that lost more than one event is taken again, as is an empty one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ops = -(-len(events) // calls)
+        if events and (not whole or len(events) >= ops * calls - 1):
+            break
+    else:
+        raise AssertionError(f"torch.profiler lost device events in {PROFILE_TRIES} windows "
+                             f"({len(events)} events in the last)")
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    if whole:
+        return ops, busy_us / len(events) * ops
+    return len(events) / calls, busy_us / calls
+
+
+def with_bound(entry, nbytes, flops):
+    """Adds the work of one call and the card's bound for it to a kernel's
+    entry: the larger of bytes over the memory rate and operations over the
+    float32 peak (``_build.bound_us``); no single PyTorch call computes any
+    of these functions, so ``library_ms`` is null."""
+    from dvo_tpu_torch.ops.cuda import _build
+
+    us, by = _build.bound_us(nbytes, flops)
+    entry.update(bytes=nbytes, flops=flops, bound_us=us, bound_ms=us / 1e3, bound_by=by,
+                 library_ms=None)
+    if "device_us" in entry:
+        entry["device_over_bound"] = entry["device_us"] / us
+    return entry
 
 
 def texture(rng, h, w, terms=8, lo=0.04, hi=0.2):
@@ -268,10 +336,11 @@ def check_framebuild(label, wrapper, plain, *args):
 
 def check_gn(obj_scenes, ref_scenes, T_inv, cfg, gn_times, tag=""):
     """GN kernel vs plain at every level; fills gn_times[tag + shape] and
-    returns (max abs error, max relative error)."""
+    returns (max abs error, max relative error, the work() of each call by
+    shape, from its own valid count)."""
     from dvo_tpu_torch.ops.cuda import gn
 
-    gn_err, gn_rel = 0.0, 0.0
+    gn_err, gn_rel, work = 0.0, 0.0, {}
     for level, (obj, ref) in enumerate(zip(obj_scenes, ref_scenes)):
         args = (obj.gray, obj.mask, ref.depth, ref.sigma, ref.gray, ref.mask,
                 ref.gx, ref.gy, ref.gmask, ref.K, T_inv, level, cfg)
@@ -293,10 +362,92 @@ def check_gn(obj_scenes, ref_scenes, T_inv, cfg, gn_times, tag=""):
         ms = timed(lambda: gn.gn_terms(*args))
         plain_ms = timed(lambda: gn.gn_terms_plain(*args))
         gn_times[shape] = (ms, plain_ms)
+        work[shape] = gn.work(obj.gray.shape, int(want[3]))
         phase("kernels", f"gn {shape}: count {int(got[3])} vs plain {int(want[3])}, "
                          f"max relative error so far {gn_rel:.3g}, "
                          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return gn_err, gn_rel
+    return gn_err, gn_rel, work
+
+
+def stepwise_level(planes, K, xi0, level_index, cfg):
+    """The stepwise GN loop: the masked loop with one ``csrc/gn.cu``
+    launch per step and the solve and pose update in PyTorch ops."""
+    from dvo_tpu_torch.ops.cuda import gn, gn_level
+
+    return gn_level.gn_level_plain(planes, K, xi0, level_index, cfg, terms=gn.gn_terms)
+
+
+@contextlib.contextmanager
+def stepwise_tracker():
+    """The tracker runs every level through ``stepwise_level`` in place of
+    the level kernel."""
+    from dvo_tpu_torch.models import tracker
+
+    with patched(tracker, "gn_level", stepwise_level):
+        yield
+
+
+def check_gn_level(obj_scenes, ref_scenes, cfg, times, tag=""):
+    """The level kernel vs ``gn_level_plain`` at every level, coarse to fine,
+    each level starting from the plain loop's xi of the level before (as
+    ``track`` chains them).  Fills times[tag + shape] = (kernel, plain loop,
+    stepwise loop) ms, work[tag + shape] = (bytes, flops) of the call.
+    Returns (max |d xi|, max relative statistics error, work by shape, the
+    finest level's arguments)."""
+    from dvo_tpu_torch.models.tracker import level_planes
+    from dvo_tpu_torch.ops.cuda import gn_level
+
+    dev = obj_scenes[0].gray.device
+    xi = torch.zeros(6, dtype=torch.float32, device=dev)
+    max_dxi, max_rel, work = 0.0, 0.0, {}
+    for level, (obj, ref) in enumerate(zip(obj_scenes, ref_scenes)):
+        args = (level_planes(obj, ref), ref.K, xi, level, cfg)
+        got = gn_level.gn_level(*args)
+        again = gn_level.gn_level(*args)
+        want = gn_level.gn_level_plain(*args)
+        torch.cuda.synchronize()
+        shape = tag + "x".join(map(str, obj.gray.shape))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"gn_level {shape}: two runs on the same inputs differ")
+        dxi = (got[0] - want[0]).abs().max().item()
+        if not dxi <= GN_LEVEL_XI_TOL:
+            raise AssertionError(f"gn_level {shape}: |d xi| {dxi:.3g}")
+        if int(got[4]) != int(want[4]) or not torch.equal(got[3], want[3]):
+            raise AssertionError(f"gn_level {shape}: iterations {int(got[4])} vs "
+                                 f"{int(want[4])}, counts {got[3].tolist()} vs "
+                                 f"{want[3].tolist()}")
+        for part, a, b in zip(("residuals", "update norms"), got[1:3], want[1:3]):
+            rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-12)
+            if not rel <= GN_LEVEL_STAT_TOL:
+                raise AssertionError(f"gn_level {shape} {part}: relative error {rel:.3g}")
+            max_rel = max(max_rel, rel)
+        max_dxi = max(max_dxi, dxi)
+        iters = int(want[4])
+        work[shape] = gn_level.work(obj.gray.shape, want[3][:iters].tolist(),
+                                    cfg.max_iterations)
+        ms = timed(lambda: gn_level.gn_level(*args))
+        plain_ms = timed(lambda: gn_level.gn_level_plain(*args), SLOW_REPS, 1)
+        step_ms = timed(lambda: stepwise_level(*args), SLOW_REPS, 1)
+        times[shape] = (ms, plain_ms, step_ms)
+        phase("kernels", f"gn_level {shape}: {iters} steps, |d xi| {dxi:.3g}, counts and "
+                         f"iterations equal, repeats bitwise, kernel {ms:.4f} ms, plain loop "
+                         f"{plain_ms:.3f} ms, stepwise loop {step_ms:.3f} ms")
+        xi, fine_args = want[0], args
+
+    # a level with no valid pixel: one step, mean residual -1, xi as composed with 0
+    obj, ref = obj_scenes[-1], ref_scenes[-1]
+    planes = list(level_planes(obj, ref))
+    planes[1] = torch.zeros_like(planes[1])
+    args = (tuple(planes), ref.K, xi, len(obj_scenes) - 1, cfg)
+    got, want = gn_level.gn_level(*args), gn_level.gn_level_plain(*args)
+    torch.cuda.synchronize()
+    if (int(got[4]) != 1 or int(want[4]) != 1 or got[1][0].item() != -1.0
+            or got[3].abs().sum().item() != 0
+            or not (got[0] - want[0]).abs().max().item() <= GN_LEVEL_XI_TOL):
+        raise AssertionError(f"gn_level {tag}no valid pixel: {[t.tolist() for t in got]}")
+    phase("kernels", f"gn_level {tag}no valid pixel: 1 step, residual -1, xi kept "
+                     f"(|d xi| {(got[0] - want[0]).abs().max().item():.3g})")
+    return max_dxi, max_rel, work, fine_args
 
 
 def compare_maps(name, got, want):
@@ -320,8 +471,8 @@ def kernel_phase(state, grays, masks, K, cfg, tag=""):
     from dvo_tpu_torch import lie
     from dvo_tpu_torch.models.frame import build_tracking_frame, normalize_gray, with_pose
     from dvo_tpu_torch.models.mapper import epipolar_fields
-    from dvo_tpu_torch.models.tracker import track
-    from dvo_tpu_torch.ops.cuda import epipolar, framebuild, regularize
+    from dvo_tpu_torch.models.tracker import level_planes, track
+    from dvo_tpu_torch.ops.cuda import epipolar, framebuild, gn, gn_level, regularize
     from dvo_tpu_torch.ops.depth_filter import draw_reset_depth
 
     dev = grays.device
@@ -335,11 +486,35 @@ def kernel_phase(state, grays, masks, K, cfg, tag=""):
 
     # --- GN at every pyramid level (the finest carries the crop) ---
     gn_times = {}
-    gn_err, gn_rel = check_gn(frame.scenes, state.ref.scenes, T_inv, cfg.tracker, gn_times, tag)
+    gn_err, gn_rel, gn_work = check_gn(frame.scenes, state.ref.scenes, T_inv, cfg.tracker,
+                                       gn_times, tag)
     ms, plain_ms = gn_times[tag + shape]
-    results.append(dict(name="gn", route="cuda", source="dvo_tpu_torch/csrc/gn.cu",
-                        replaces="dvo_tpu/ops/pallas/gn.py:45", max_abs_err=gn_err,
-                        max_rel_err=gn_rel, ms=ms, plain_ms=plain_ms, times_by_shape=gn_times))
+    fine = len(frame.scenes) - 1
+    planes = level_planes(frame.scenes[fine], state.ref.scenes[fine])
+    K_fine = state.ref.scenes[fine].K
+    ops, us = device_profile(lambda: gn.gn_terms(*planes, K_fine, T_inv, fine, cfg.tracker),
+                             20, True)
+    results.append(with_bound(
+        dict(name="gn", route="cuda", source="dvo_tpu_torch/csrc/gn.cu",
+             replaces="dvo_tpu/ops/pallas/gn.py:45", max_abs_err=gn_err, max_rel_err=gn_rel,
+             ms=ms, plain_ms=plain_ms, device_us=us, device_launches=ops,
+             times_by_shape=gn_times, work_by_shape=gn_work), *gn_work[tag + shape]))
+
+    # --- the GN level loop at every pyramid level, chained coarse to fine ---
+    lv_times = {}
+    dxi, lv_rel, lv_work, level_args = check_gn_level(frame.scenes, state.ref.scenes,
+                                                      cfg.tracker, lv_times, tag)
+    ms, plain_ms, step_ms = lv_times[tag + shape]
+    ops, us = device_profile(lambda: gn_level.gn_level(*level_args), 20, True)
+    step_ops, step_us = device_profile(lambda: stepwise_level(*level_args), 2, True)
+    phase("kernels", f"{tag}gn_level {shape}: device {us:.2f} us in {ops:g} launches; "
+                     f"stepwise loop {step_us:.2f} us in {step_ops:g}")
+    results.append(with_bound(
+        dict(name="gn_level", route="cuda", source="dvo_tpu_torch/csrc/gn_level.cu",
+             replaces="dvo_tpu/ops/pallas/gn.py:45", max_abs_err=dxi, max_rel_err=lv_rel,
+             ms=ms, plain_ms=plain_ms, stepwise_ms=step_ms, device_us=us, device_launches=ops,
+             stepwise_device_us=step_us, stepwise_device_launches=step_ops,
+             times_by_shape=lv_times, work_by_shape=lv_work), *lv_work[tag + shape]))
 
     # --- epipolar against the full ring ---
     hist = state.history
@@ -364,13 +539,20 @@ def kernel_phase(state, grays, masks, K, cfg, tag=""):
     ms = timed(lambda: epipolar.epipolar_update(fields, *ring, cfg.mapper))
     plain_ms = timed(lambda: epipolar.epipolar_update_plain(fields, *ring, cfg.mapper))
     slots = torch.unique(fields[epipolar.F_SLOT][fields[epipolar.F_BASE_OK] > 0.5]).numel()
+    samples = int(epipolar.marched_samples(fields, cfg.mapper))
+    ops, us = device_profile(lambda: epipolar.epipolar_update(fields, *ring, cfg.mapper), 20,
+                             True)
     phase("kernels", f"{tag}epipolar {shape}: stats {got[3].tolist()} vs plain {want[3].tolist()}, "
-                     f"{slots} born slots in use, depth share {share_d:.5f}, "
-                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results.append(dict(name="epipolar", route="cuda", source="dvo_tpu_torch/csrc/epipolar.cu",
-                        replaces="dvo_tpu/ops/pallas/epipolar.py:64",
-                        max_abs_err=max(err_d, err_s), ms=ms, plain_ms=plain_ms,
-                        times_by_shape={tag + shape: (ms, plain_ms)}))
+                     f"{slots} born slots in use, {samples} samples marched, depth share "
+                     f"{share_d:.5f}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device "
+                     f"{us:.2f} us in {ops:g} launches")
+    results.append(with_bound(
+        dict(name="epipolar", route="cuda", source="dvo_tpu_torch/csrc/epipolar.cu",
+             replaces="dvo_tpu/ops/pallas/epipolar.py:64", max_abs_err=max(err_d, err_s),
+             ms=ms, plain_ms=plain_ms, device_us=us, device_launches=ops,
+             slots_in_use=slots, marched_samples=samples,
+             times_by_shape={tag + shape: (ms, plain_ms)}),
+        *epipolar.work(base.shape, slots, samples)))
 
     # --- regularize ---
     got = regularize.regularize(base.depth, base.sigma, cfg.mapper)
@@ -379,13 +561,17 @@ def kernel_phase(state, grays, masks, K, cfg, tag=""):
     err, share = compare_maps("regularize", got, want)
     ms = timed(lambda: regularize.regularize(base.depth, base.sigma, cfg.mapper))
     plain_ms = timed(lambda: regularize.regularize_plain(base.depth, base.sigma, cfg.mapper))
+    ops, us = device_profile(lambda: regularize.regularize(base.depth, base.sigma, cfg.mapper),
+                             20, True)
     phase("kernels", f"{tag}regularize {shape}: share {share:.5f}, max err {err:.3g}, "
-                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results.append(dict(name="regularize", route="cuda",
-                        source="dvo_tpu_torch/csrc/regularize.cu",
-                        replaces="dvo_tpu/ops/pallas/regularize.py:29",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        times_by_shape={tag + shape: (ms, plain_ms)}))
+                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device {us:.2f} us in "
+                     f"{ops:g} launches")
+    results.append(with_bound(
+        dict(name="regularize", route="cuda", source="dvo_tpu_torch/csrc/regularize.cu",
+             replaces="dvo_tpu/ops/pallas/regularize.py:29", max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, device_us=us, device_launches=ops,
+             times_by_shape={tag + shape: (ms, plain_ms)}),
+        *regularize.work(base.shape)))
 
     # --- the frame builds: tracking frame, a keyframe with depth (the first
     # frame's), the depth/sigma pair (promotion) and one plane (regularize) ---
@@ -437,9 +623,17 @@ def kinect_mono_kernel_phase(dev, grays, masks, counts, K, cfg):
     return kernel_phase(state, gray, mask, K0, cfg0, tag="kinect_mono ")
 
 
-def rgbd_kernel_phase(dev, grays, masks, counts, K, cfg, gn_entry, fb):
-    """GN at the four RGB-D levels and the RGB-D frame builds, on the first
-    two frames of the RGB-D sequence; adds to the gn entry and to ``fb``."""
+def merge_entry(entry, err, rel, work):
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    entry["max_rel_err"] = max(entry["max_rel_err"], rel)
+    entry["work_by_shape"].update(work)
+
+
+def rgbd_kernel_phase(dev, grays, masks, counts, K, cfg, entries, fb):
+    """The GN step and the GN level loop at the four RGB-D levels and the
+    RGB-D frame builds, on the first two frames of the RGB-D sequence; adds
+    to the ``gn`` and ``gn_level`` entries and to ``fb``.  Returns (the
+    RGB-D build's label, its device time, launches and work())."""
     from dvo_tpu_torch import lie
     from dvo_tpu_torch.models.frame import build_frame_with_depth, normalize_gray
     from dvo_tpu_torch.models.odometry import _cull_chunk, raw_depth
@@ -453,22 +647,27 @@ def rgbd_kernel_phase(dev, grays, masks, counts, K, cfg, gn_entry, fb):
     ref = build_frame_with_depth(g[0], m[0], depths[0], sigmas[0], K0, levels, 0, 0)
     obj = build_frame_with_depth(g[1], m[1], depths[1], sigmas[1], K0, levels, 0, 1)
     tr = track(obj, ref, cfg0.tracker)
-    gn_times = gn_entry["times_by_shape"]
-    err, rel = check_gn(obj.scenes, ref.scenes, lie.se3_exp(-tr.xi), cfg0.tracker, gn_times)
-    gn_entry["max_abs_err"] = max(gn_entry["max_abs_err"], err)
-    gn_entry["max_rel_err"] = max(gn_entry["max_rel_err"], rel)
+    merge_entry(entries["gn"], *check_gn(obj.scenes, ref.scenes, lie.se3_exp(-tr.xi),
+                                         cfg0.tracker, entries["gn"]["times_by_shape"]))
+    merge_entry(entries["gn_level"],
+                *check_gn_level(obj.scenes, ref.scenes, cfg0.tracker,
+                                entries["gn_level"]["times_by_shape"])[:3])
 
     holes = m[1] & (depths[1] > 0)
     if bool(holes.all()):
         raise AssertionError("the RGB-D build's mask has no holes")
     shape = f"{'x'.join(map(str, g[1].shape))}x{levels}"
+    build_args = (normalize_gray(g[1]), holes, depths[1], sigmas[1], levels)
     fb[f"rgbd {shape}"] = check_framebuild(
         f"rgbd {shape}", framebuild.build_pyramid_planes, framebuild.build_pyramid_planes_plain,
-        normalize_gray(g[1]), holes, depths[1], sigmas[1], levels)
+        *build_args)
     fb[f"one {shape}"] = check_framebuild(
         f"one {shape}", framebuild.cull_pyramid_one, framebuild.cull_pyramid_one_plain,
         depths[1], levels)
-    return f"rgbd {shape}"
+    ops, us = device_profile(lambda: framebuild.build_pyramid_planes(*build_args), 20, True)
+    phase("kernels", f"framebuild rgbd {shape}: device {us:.2f} us in {ops:g} launches")
+    return f"rgbd {shape}", dict(device_us=us, device_launches=ops), \
+        framebuild.work(g[1].shape, levels, 3, True)
 
 
 def sync_stacks(fn, syncs: list):
@@ -679,9 +878,8 @@ def cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_p
             ts, poses, _ = got["result"]
             if not np.isfinite(poses).all():
                 raise AssertionError(f"cli {name}: non-finite pose")
-            kernels = ("gn", "epipolar", "regularize", "framebuild") if "mono" in name \
-                else ("gn", "framebuild")
-            require_launched(name, got["launches"], kernels)
+            require_launched(name, got["launches"],
+                             MONO_KERNELS if "mono" in name else RGBD_KERNELS)
             if "mono" not in name and (got["launches"]["epipolar"]
                                        or got["launches"]["regularize"]):
                 raise AssertionError(f"{name}: the mapper's kernels ran: {got['launches']}")
@@ -795,10 +993,74 @@ def run_path(name, fn):
     return out, time.perf_counter() - t0, dict(_build.LAUNCHES)
 
 
-def require_launched(path, launches, names):
+MONO_KERNELS = ("gn_level", "epipolar", "regularize", "framebuild")
+RGBD_KERNELS = ("gn_level", "framebuild")
+
+
+def require_launched(path, launches, names, levels_per_frame=None):
+    """Every kernel in ``names`` launched on the path; with
+    ``levels_per_frame`` = (levels, frames), the level kernel exactly once
+    per level and frame, and the stepwise kernel not at all."""
     for name in names:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the {path} path")
+    if levels_per_frame is not None:
+        levels, frames = levels_per_frame
+        if launches["gn_level"] != levels * frames or launches["gn"] != 0:
+            raise AssertionError(f"{path}: expected {levels} gn_level launches per frame over "
+                                 f"{frames} frames and no gn launch: {launches}")
+
+
+def paired_loops(name, fn, frames, poses_of, first):
+    """After ``first`` (the path's run with the level kernel: output,
+    seconds, launches), the same path with the stepwise loop twice and
+    with the level kernel again: A, B, B, A in one process.  Returns
+    (ms/frame of the four runs by loop, the stepwise launches, max |dT|
+    of a stepwise run against the level kernel's over all frames and over
+    the first CPU_FRAMES)."""
+    ms = {"level": [1e3 * first[1] / frames], "stepwise": []}
+    T_level = poses_of(first[0])
+    dT, dT_first = 0.0, 0.0
+    for loop in ("stepwise", "stepwise", "level"):
+        with stepwise_tracker() if loop == "stepwise" else contextlib.nullcontext():
+            out, elapsed, launches = run_path(f"{name}_{loop}", fn)
+        ms[loop].append(1e3 * elapsed / frames)
+        if loop == "stepwise":
+            require_launched(f"{name}_stepwise", launches, ("gn",))
+            if launches["gn_level"] != 0:
+                raise AssertionError(f"{name}_stepwise launched the level kernel: {launches}")
+            step_launches = launches
+            diff = (poses_of(out) - T_level).abs()
+            dT = max(dT, diff.max().item())
+            dT_first = max(dT_first, diff[:CPU_FRAMES].max().item())
+        elif not (poses_of(out)[:CPU_FRAMES] - T_level[:CPU_FRAMES]).abs().max() <= POSE_TOL:
+            raise AssertionError(f"{name}: the level kernel's second run gave other poses")
+    if not dT_first <= POSE_TOL:
+        raise AssertionError(f"{name}: the stepwise loop's first {CPU_FRAMES} poses differ "
+                             f"from the level kernel's by {dT_first:.3g}")
+    return ms, step_launches, (dT, dT_first)
+
+
+def device_ops(path_loops):
+    """{loop: (device ops per frame, idle share)} for a phase's line."""
+    return {d: (round(path_loops[d]["device_ops_per_frame"]),
+                round(path_loops[d]["idle_share"], 3)) for d in ("level", "stepwise")}
+
+
+def profiled_loops(fn, frames, ms_per_frame):
+    """Device ops and device-busy us per frame of ``fn()`` (``frames``
+    frames) under ``torch.profiler``, with the level kernel and with the
+    stepwise loop; the idle share is read against the mean unprofiled
+    ms/frame of the same loop (``ms_per_frame``, from this process)."""
+    out = {}
+    for loop in ("level", "stepwise"):
+        with stepwise_tracker() if loop == "stepwise" else contextlib.nullcontext():
+            ops, us = device_profile(fn)
+        wall_us = 1e3 * statistics.mean(ms_per_frame[loop])
+        out[loop] = dict(device_ops_per_frame=ops / frames,
+                           device_busy_us_per_frame=us / frames,
+                           idle_share=1.0 - us / frames / wall_us)
+    return out
 
 
 def main() -> None:
@@ -851,13 +1113,17 @@ def main() -> None:
     kernels, fb = kernel_phase(warm, gray_next, mask_next, K0, cfg0)
     cfg_r = DVOConfig.rgbd()
     r_grays, r_masks, r_counts, r_K = render_rgbd(dev)
-    rgbd_label = rgbd_kernel_phase(dev, r_grays, r_masks, r_counts, r_K, cfg_r, kernels[0], fb)
+    entries = {k["name"]: k for k in kernels}
+    rgbd_label, fb_device, fb_work = rgbd_kernel_phase(dev, r_grays, r_masks, r_counts, r_K,
+                                                       cfg_r, entries, fb)
     kin_kernels, kin_fb = kinect_mono_kernel_phase(dev, r_grays, r_masks, r_counts, r_K, cfg)
     for entry, more in zip(kernels, kin_kernels):
         for key in ("max_abs_err", "max_rel_err"):
             if key in more:
                 entry[key] = max(entry[key], more[key])
-        entry["times_by_shape"].update(more["times_by_shape"])
+        for key in ("times_by_shape", "work_by_shape"):
+            if key in more:
+                entry[key].update(more[key])
     fb.update(kin_fb)
 
     # 4. main path
@@ -870,7 +1136,8 @@ def main() -> None:
             outs.append(res)
         return outs
 
-    outs, elapsed, launches = run_path("mono", mono_main)
+    first = run_path("mono", mono_main)
+    outs, elapsed, launches = first
     T = torch.cat([r.T_world for r in outs])
     kf = torch.cat([r.is_keyframe for r in outs])
     accepted = torch.cat([r.mapping.accepted for r in outs])
@@ -880,12 +1147,28 @@ def main() -> None:
         raise AssertionError("no keyframe promotion")
     if not bool((accepted[~kf] > 0).any()):
         raise AssertionError("no depth update accepted an observation")
-    require_launched("mono", launches, launches)
+    require_launched("mono", launches, MONO_KERNELS, (cfg.pyramid.levels, N_FRAMES))
     ms_frame = 1e3 * elapsed / N_FRAMES
     by_path = {"mono": launches}
     phase("main", f"{N_FRAMES} frames 640x480 -> 160x120, {int(kf.sum())} promotions, "
                   f"accepted per update {accepted[~kf].tolist()}, launches {launches}, "
                   f"{ms_frame:.3f} ms/frame = {1e3 / ms_frame:.2f} fps on {card_line}")
+    gn_loops = {}
+    ms_pair, by_path["mono_stepwise"], dT_step = paired_loops(
+        "mono", mono_main, N_FRAMES, lambda o: torch.cat([r.T_world for r in o]), first)
+    profile_sl = slice(nxt, nxt + PROFILE_FRAMES)
+    gn_loops["mono"] = dict(ms_per_frame=ms_pair, stepwise_vs_level_max_dT=dT_step[0],
+                           stepwise_vs_level_first_frames_max_dT=dT_step[1],
+                           **profiled_loops(lambda: monocular_run(
+                               warm, grays[profile_sl], masks[profile_sl], K, cfg,
+                               resets[:PROFILE_FRAMES].to(dev)), PROFILE_FRAMES, ms_pair))
+    phase("main", f"level kernel vs stepwise loop (A, B, B, A): ms/frame {ms_pair}, "
+                  f"stepwise poses within {dT_step[1]:.3g} of the level kernel's over the first "
+                  f"{CPU_FRAMES} frames (tol {POSE_TOL}) and {dT_step[0]:.3g} over all {N_FRAMES} "
+                  f"(the noise-bootstrapped depth map amplifies float noise); device ops per "
+                  f"frame and idle share over {PROFILE_FRAMES} frames after the warm-up: "
+                  f"{device_ops(gn_loops['mono'])}, "
+                  f"stepwise launches {by_path['mono_stepwise']} on {card_line}")
 
     # 5. the first frames on the CPU with the plain versions
     cpu_state = init("cpu")
@@ -909,13 +1192,14 @@ def main() -> None:
         return rgbd_run_raw(rgbd_start(device), r_grays[1:1 + n], r_masks[1:1 + n],
                             r_counts[1:1 + n], r_K, cfg_r, depth_scale=DEPTH_SCALE)[1]
 
-    res_r, elapsed, launches = run_path("rgbd", lambda: rgbd_main(dev, RGBD_FRAMES))
+    first = run_path("rgbd", lambda: rgbd_main(dev, RGBD_FRAMES))
+    res_r, elapsed, launches = first
     by_path["rgbd"] = launches
     if not bool(torch.isfinite(res_r.T_world).all()):
         raise AssertionError("rgbd: non-finite pose")
     step = torch.tensor(RGBD_STEP, device=dev)
     step_err = torch.linalg.vector_norm(res_r.relative_xi - step, dim=1)
-    require_launched("rgbd", launches, ("gn", "framebuild"))
+    require_launched("rgbd", launches, RGBD_KERNELS, (cfg_r.pyramid.levels, RGBD_FRAMES))
     if launches["epipolar"] or launches["regularize"]:
         raise AssertionError(f"rgbd: the mapper's kernels ran: {launches}")
     ms_rgbd = 1e3 * elapsed / RGBD_FRAMES
@@ -936,6 +1220,18 @@ def main() -> None:
                   f"(tol {POSE_TOL}), GN iterations equal: {same_iters}")
     if not dT_r <= POSE_TOL:
         raise AssertionError("rgbd: CUDA and CPU runs disagree")
+    ms_pair, by_path["rgbd_stepwise"], dT_step = paired_loops(
+        "rgbd", lambda: rgbd_main(dev, RGBD_FRAMES), RGBD_FRAMES, lambda o: o.T_world, first)
+    gn_loops["rgbd"] = dict(ms_per_frame=ms_pair, stepwise_vs_level_max_dT=dT_step[0],
+                           **profiled_loops(lambda: rgbd_main(dev, PROFILE_FRAMES),
+                                              PROFILE_FRAMES, ms_pair))
+    phase("rgbd", f"level kernel vs stepwise loop (A, B, B, A): ms/frame {ms_pair}, "
+                  f"stepwise poses within {dT_step[0]:.3g} of the level kernel's (tol "
+                  f"{POSE_TOL}); device ops per frame and idle share over {PROFILE_FRAMES} frames: "
+                  f"{device_ops(gn_loops['rgbd'])}, "
+                  f"stepwise launches {by_path['rgbd_stepwise']} on {card_line}")
+    if not dT_step[0] <= POSE_TOL:
+        raise AssertionError("rgbd: the stepwise loop's poses differ from the level kernel's")
 
     # 7. the monocular pipeline seeded with measured depth
     def mono_depth_main():
@@ -949,7 +1245,8 @@ def main() -> None:
     by_path["monodepth"] = launches
     if not bool(torch.isfinite(res_d.T_world).all()):
         raise AssertionError("monodepth: non-finite pose")
-    require_launched("monodepth", launches, launches)
+    require_launched("monodepth", launches, MONO_KERNELS,
+                     (cfg.pyramid.levels, MONO_DEPTH_FRAMES))
     phase("monodepth", f"{MONO_DEPTH_FRAMES} frames 640x480, "
                        f"{int(res_d.is_keyframe.sum())} promotions, launches {launches}, "
                        f"{1e3 * elapsed / MONO_DEPTH_FRAMES:.3f} ms/frame")
@@ -976,20 +1273,30 @@ def main() -> None:
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     _, ms, plain_ms = fb[rgbd_label]
-    kernels.append(dict(name="framebuild", route="cuda", source="dvo_tpu_torch/csrc/framebuild.cu",
-                        replaces="dvo_tpu/ops/pallas/framebuild.py:103",
-                        max_abs_err=max(v[0] for v in fb.values()),
-                        ms=ms, plain_ms=plain_ms,
-                        ms_by_shape={k: v[1] for k, v in fb.items()},
-                        plain_ms_by_shape={k: v[2] for k, v in fb.items()}))
+    kernels.append(with_bound(
+        dict(name="framebuild", route="cuda", source="dvo_tpu_torch/csrc/framebuild.cu",
+             replaces="dvo_tpu/ops/pallas/framebuild.py:103",
+             max_abs_err=max(v[0] for v in fb.values()), ms=ms, plain_ms=plain_ms, **fb_device,
+             ms_by_shape={k: v[1] for k, v in fb.items()},
+             plain_ms_by_shape={k: v[2] for k, v in fb.items()}), *fb_work))
+    frames_by_path = {"mono": N_FRAMES, "rgbd": RGBD_FRAMES, "mono_stepwise": N_FRAMES,
+                      "rgbd_stepwise": RGBD_FRAMES}
     for k in kernels:
         if "times_by_shape" in k:
             times = k.pop("times_by_shape")
             k["ms_by_shape"] = {s: v[0] for s, v in times.items()}
             k["plain_ms_by_shape"] = {s: v[1] for s, v in times.items()}
+            if k["name"] == "gn_level":
+                k["stepwise_ms_by_shape"] = {s: v[2] for s, v in times.items()}
+        if "work_by_shape" in k:
+            k["bound_us_by_shape"] = {s: _build.bound_us(*w)[0]
+                                      for s, w in k["work_by_shape"].items()}
         k["launches"] = sum(p[k["name"]] for p in by_path.values())
         k["launches_by_path"] = {path: p[k["name"]] for path, p in by_path.items()}
-    print(json.dumps({"kernels": kernels, "ms_per_frame": ms_frame, "rgbd_ms_per_frame": ms_rgbd,
+        k["launches_per_frame"] = {path: by_path[path][k["name"]] / n
+                                   for path, n in frames_by_path.items()}
+    print(json.dumps({"kernels": kernels, "gn_loops": gn_loops,
+                      "ms_per_frame": ms_frame, "rgbd_ms_per_frame": ms_rgbd,
                       "syncs_per_frame": {"mono": syncs_mono / n, "rgbd": syncs_rgbd / n},
                       "cli": cli, "card": card_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

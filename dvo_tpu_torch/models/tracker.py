@@ -1,12 +1,13 @@
 """Coarse-to-fine photometric Gauss-Newton tracking — ``dvo_tpu.models.
 tracker`` ported (reference tracker.cpp, optimize.cpp).
 
-The port runs the JAX package's fixed-length masked driver
-(``early_exit=False``): every level takes ``max_iterations`` GN steps and a
-convergence mask freezes xi after the reference's post-update break.  It
-gives the same xi and the same per-level ``iterations`` as the early-exit
-``while_loop`` and reads nothing back to the host, where an early exit
-would cost one device sync per iteration.
+Each level's GN loop is ``ops.cuda.gn_level``: on a CUDA card one kernel
+launch that iterates and stops at convergence on the device; on the CPU the
+JAX package's fixed-length masked loop (``early_exit=False``), where every
+level takes ``max_iterations`` GN steps and a convergence mask freezes xi
+after the reference's post-update break.  Both give the same xi and the same
+per-level ``iterations`` as the early-exit ``while_loop`` and read nothing
+back to the host.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ import torch
 from dvo_tpu_torch import lie
 from dvo_tpu_torch.config import TrackerConfig
 from dvo_tpu_torch.models.frame import Frame, Scene
-from dvo_tpu_torch.ops.cuda.gn import gn_terms as gn_terms_kernel
 from dvo_tpu_torch.ops.cuda.gn import gn_terms_plain
+from dvo_tpu_torch.ops.cuda.gn_level import gn_level, gn_solve  # noqa: F401 (gn_solve: API)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,53 +44,19 @@ def gn_terms(obj_gray, obj_mask, ref_depth, ref_sigma,
                           K, lie.se3_exp(-xi), level_index, cfg)
 
 
-def gn_solve(Hmat, g, count, damping: float):
-    """delta = (H + lambda I)^-1 g, zero when no pixel was valid
-    (optimize.cpp:93-94).  ``cholesky_ex`` reports failure in ``info``
-    instead of syncing to raise; a failed factorisation gives NaN, as JAX's
-    does, so the caller's finiteness guard keeps the previous xi."""
-    A = Hmat + damping * torch.eye(6, dtype=Hmat.dtype, device=Hmat.device)
-    L, info = torch.linalg.cholesky_ex(A)
-    delta = torch.cholesky_solve(g[:, None], L)[:, 0]
-    delta = torch.where(info == 0, delta, torch.nan)
-    return torch.where(count > 0, delta, 0.0)
-
-
-def _gn_iteration(obj: Scene, ref: Scene, xi, level_index: int, cfg: TrackerConfig):
-    """One linearise-solve-compose step.
-    Returns (new_xi, mean_res, update_norm, count, converged)."""
-    Hmat, g, rsum, count = gn_terms_kernel(
-        obj.gray, obj.mask, ref.depth, ref.sigma,
-        ref.gray, ref.mask, ref.gx, ref.gy, ref.gmask,
-        ref.K, lie.se3_exp(-xi), level_index, cfg,
-    )
-    delta = gn_solve(Hmat, g, count, cfg.damping)
-    new_xi = lie.compose(xi, delta)
-    # NaN guard: keep the previous xi on a bad update (tracker.cpp:47-51).
-    new_xi = torch.where(lie.is_finite_xi(new_xi), new_xi, xi)
-    mean_res = torch.where(count > 0, rsum / torch.clamp(count, min=1), -1.0)
-    upd = torch.linalg.vector_norm(delta)
-    # Evaluated after the update, as the reference's break (tracker.cpp:68-73).
-    converged = (upd < cfg.min_update_norm) | (mean_res < cfg.min_residual) | (count == 0)
-    return new_xi, mean_res, upd, count, converged
+def level_planes(obj: Scene, ref: Scene):
+    """The nine planes a level's linearisation reads, in ``gn_level``'s
+    order."""
+    return (obj.gray, obj.mask, ref.depth, ref.sigma,
+            ref.gray, ref.mask, ref.gx, ref.gy, ref.gmask)
 
 
 def track_level(obj: Scene, ref: Scene, xi0, level_index: int, cfg: TrackerConfig):
-    """``max_iterations`` masked GN steps at one level.
+    """One level's GN loop from ``xi0`` (``ops.cuda.gn_level``).
     Returns (xi, (residuals, update_norms, counts, iterations))."""
-    xi = xi0
-    done = torch.zeros((), dtype=torch.bool, device=xi0.device)
-    res, upd, cnt, active = [], [], [], []
-    for _ in range(cfg.max_iterations):
-        new_xi, mean_res, u, count, converged = _gn_iteration(obj, ref, xi, level_index, cfg)
-        xi = torch.where(done, xi, new_xi)
-        res.append(torch.where(done, 0.0, mean_res))
-        upd.append(torch.where(done, 0.0, u))
-        cnt.append(torch.where(done, 0, count))
-        active.append(~done)
-        done = done | converged
-    iterations = torch.stack(active).sum().to(torch.int32)
-    return xi, (torch.stack(res), torch.stack(upd), torch.stack(cnt), iterations)
+    xi, res, upd, cnt, iterations = gn_level(level_planes(obj, ref), ref.K, xi0, level_index,
+                                             cfg)
+    return xi, (res, upd, cnt, iterations)
 
 
 def track(obj_frame: Frame, ref_frame: Frame, cfg: TrackerConfig = TrackerConfig(),

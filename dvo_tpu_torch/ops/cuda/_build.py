@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels (``dvo_tpu_torch/csrc``).
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with
-a plain C interface, loaded with ``ctypes`` — no PyTorch headers, so the
-build takes seconds.  The library is rebuilt whenever a source or a flag
+All ``csrc/*.cu`` files compile with ``nvcc`` (one process per source, all
+started together) and link into one shared library with a plain C
+interface, loaded with ``ctypes`` — no PyTorch headers, so the build takes
+seconds.  The library is rebuilt whenever a source or a flag
 changes (its file name carries their hash) and is written into
 ``dvo_tpu_torch/.build/``, which git ignores.
 
@@ -31,12 +32,16 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / ".build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                           "-fmad=false"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
 
 # Kernel launches since the last ``reset_launches``: each wrapper adds one
 # where it launches its kernel, and nowhere else.
-LAUNCHES = {"gn": 0, "epipolar": 0, "regularize": 0, "framebuild": 0}
+LAUNCHES = {"gn": 0, "gn_level": 0, "epipolar": 0, "regularize": 0, "framebuild": 0}
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
+# float32 outside the tensor cores.  A kernel's bound is taken against them.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS_F32 = 67e12
 
 _lock = threading.Lock()
 _library = None
@@ -47,6 +52,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dvo_gn_num_blocks": ([_I], _I),
     "dvo_gn_terms": ([_P] * 11 + [_I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P], _I),
+    "dvo_gn_level": ([_P] * 17 + [_I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,
+                                  _I, _F, _F, _F, _P], _I),
     "dvo_regularize": ([_P] * 3 + [_I, _I, _F, _F, _P], _I),
     "dvo_epipolar_num_blocks": ([_I], _I),
     "dvo_epipolar": ([_P] * 9 + [_I, _I, _I, _I] + [_F] * 10 + [_P], _I),
@@ -59,12 +66,21 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def bound_us(nbytes: int, flops: int):
+    """The least time the card could take for ``nbytes`` moved and ``flops``
+    float32 operations, in microseconds, and which of the two sets it
+    ("bytes" or "operations")."""
+    t_bytes = 1e6 * nbytes / PEAK_BYTES_PER_S
+    t_flops = 1e6 * flops / PEAK_FLOPS_F32
+    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+
+
 def sources() -> list[Path]:
     return sorted(SOURCE_DIR.glob("*.cu"))
 
 
 def _headers() -> list[Path]:
-    return sorted(SOURCE_DIR.glob("*.h"))
+    return sorted(SOURCE_DIR.glob("*.h")) + sorted(SOURCE_DIR.glob("*.cuh"))
 
 
 def library_path() -> Path:
@@ -83,23 +99,39 @@ def nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def nvcc_command(out: Path) -> list[str]:
-    return [nvcc(), *NVCC_FLAGS, "-I", str(SOURCE_DIR), "-o", str(out),
-            *(str(s) for s in sources())]
+def compile_command(src: Path, obj: Path) -> list[str]:
+    return [nvcc(), *NVCC_FLAGS, "-I", str(SOURCE_DIR), "-c", str(src), "-o", str(obj)]
+
+
+def link_command(objs: list[Path], out: Path) -> list[str]:
+    return [nvcc(), *ARCH_FLAGS, "-shared", "-o", str(out), *(str(o) for o in objs)]
 
 
 def build() -> Path:
-    """Compile the library unless a build of the current sources exists.
-    A failed ``nvcc`` raises with its stderr."""
+    """Compile the library unless a build of the current sources exists:
+    every source in its own ``nvcc`` process, all running at once, then one
+    link.  A failed ``nvcc`` raises with its stderr."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    try:
+        procs = [subprocess.Popen(compile_command(src, obj), stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources(), objs)]
+        results = [(p.args, p.communicate()[1], p.returncode) for p in procs]
+        link = subprocess.run(link_command(objs, tmp), capture_output=True, text=True)
+        results.append((link.args, link.stderr, link.returncode))
+        for args, stderr, code in results:
+            if code != 0:
+                raise RuntimeError(f"nvcc failed ({code}): {' '.join(args)}\n{stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
+    finally:
+        for path in objs + [tmp]:
+            path.unlink(missing_ok=True)
     return out
 
 

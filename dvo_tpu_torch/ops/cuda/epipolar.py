@@ -29,6 +29,36 @@ N_FIELDS = 24
 EPS = 1e-6
 
 
+# Per pixel: the 24 field planes read, depth, sigma and age written; per
+# born-keyframe slot in use, gray, gx, gy (float32) and gmask (one byte).
+# One marched sample costs its coordinates (4 float operations), the corner
+# split (4), the bilinear sample (12), the squared difference (2) and the
+# 3-tap SSD (5); what follows the march (triangulation, sigma model, gates,
+# fusion) costs about 60 per pixel.
+BYTES_PER_PIXEL = N_FIELDS * 4 + 3 * 4
+BYTES_PER_SLOT_PIXEL = 3 * 4 + 1
+FLOPS_PER_SAMPLE = 27
+FLOPS_PER_PIXEL = 60
+
+
+def marched_samples(fields, cfg: MapperConfig = MapperConfig()):
+    """() int64 tensor: the samples the march takes on these inputs — for
+    every pixel with a base observation, min(ceil(length) + 4, max_steps +
+    4) offsets along its segment (the kernel's loop bound)."""
+    length = fields[F_LENGTH][fields[F_BASE_OK] > 0.5]
+    return torch.clamp(torch.ceil(length) + 4.0, max=cfg.max_steps + 4).to(torch.int64).sum()
+
+
+def work(shape, slots_in_use: int, samples: int):
+    """(bytes, float operations) of one call at ``shape`` = (h, w) whose
+    pixels refer to ``slots_in_use`` keyframe slots and march ``samples``
+    samples in all (``marched_samples``): what these inputs need, not the
+    whole ring and not ``max_steps`` for every pixel."""
+    n = shape[0] * shape[1]
+    nbytes = BYTES_PER_PIXEL * n + BYTES_PER_SLOT_PIXEL * n * int(slots_in_use) + 3 * 4
+    return nbytes, FLOPS_PER_SAMPLE * int(samples) + FLOPS_PER_PIXEL * n
+
+
 def _bilinear_stacked(img, slot, x, y):
     """Dense bilinear over a (C, H, W) stack with a per-point slot
     (getSubpixelFromDense: out-of-range +1 corners fall back to the base

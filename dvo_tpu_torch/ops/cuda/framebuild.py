@@ -36,6 +36,19 @@ def _size(h0: int, w0: int, t: int):
     return -(-h0 // r), -(-w0 // r)
 
 
+def work(shape, levels: int, n_values: int, with_mask: bool):
+    """(bytes, float operations) of one launch on a base (h0, w0) frame:
+    ``n_values`` float32 planes (and the mask) read once, every level of
+    every output plane written once (with a mask: mask, gx, gy, gmask, two
+    subtractions per pixel); without a mask nothing is computed."""
+    h0, w0 = shape
+    total = sum(h * w for h, w in (_size(h0, w0, t) for t in _levels(levels)))
+    nbytes = 4 * n_values * (h0 * w0 + total)
+    if with_mask:
+        nbytes += h0 * w0 + (1 + 4 + 4 + 1) * total
+    return nbytes, 2 * total if with_mask else 0
+
+
 # ------------------------------------------------------------ plain versions
 
 def build_pyramid_planes_plain(gray, mask, depth, sigma, levels: int):

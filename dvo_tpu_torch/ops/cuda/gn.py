@@ -1,5 +1,7 @@
-"""GN linearisation: the CUDA kernel ``csrc/gn.cu``, its plain PyTorch
-version, and the wrapper that picks one by device.
+"""GN linearisation (one step): the CUDA kernel ``csrc/gn.cu``, its plain
+PyTorch version, and the wrapper that picks one by device.  The tracker's
+path runs a level's whole loop through ``gn_level``; this wrapper is the
+single-step entry point and the stepwise yardstick.
 
 Replaces ``dvo_tpu/ops/pallas/gn.py:_gn_kernel`` (via ``gn_terms_pallas``).
 Both versions follow the XLA twin ``dvo_tpu.models.tracker.gn_terms``: the
@@ -17,6 +19,24 @@ from dvo_tpu_torch.ops.sampling import bilinear_dense, bilinear_masked
 from dvo_tpu_torch.ops.warp import back_project, pixel_grid, warp_points
 
 N_TERMS = 44  # 36 H + 6 g + r^2 + count
+# One linearisation reads, per pixel, six float32 planes and three one-byte
+# masks; every pixel is back-projected, transformed, projected (30 float
+# operations), split into corners (4) and sampled four times (12 each);
+# a pixel that passes the gates adds its Jacobian row (29), residual and
+# weight (5) and its 44 products and sums (93).
+BYTES_PER_PIXEL = 6 * 4 + 3
+FLOPS_PER_PIXEL = 30 + 4 + 4 * 12
+FLOPS_PER_VALID_PIXEL = 29 + 5 + 93
+
+
+def work(shape, valid=None):
+    """(bytes, float operations) of one call at ``shape`` = (h, w): every
+    input read once (the planes, T_inv and the intrinsics), the 44 sums
+    written once; ``valid`` pixels pass the gates (default: all)."""
+    n = shape[0] * shape[1]
+    valid = n if valid is None else int(valid)
+    nbytes = BYTES_PER_PIXEL * n + 20 * 4 + N_TERMS * 4
+    return nbytes, FLOPS_PER_PIXEL * n + FLOPS_PER_VALID_PIXEL * valid
 
 
 def _level_step(cfg: TrackerConfig, level_index: int) -> float:

@@ -15,6 +15,19 @@ from dvo_tpu_torch.ops.cuda import _build
 from dvo_tpu_torch.ops.depth_filter import gaussian_fuse
 
 
+# Per pixel: depth and sigma read, depth written; each of the four
+# neighbours costs the gate (8 float operations) and the fusion (10), and
+# the clamp one more.
+BYTES_PER_PIXEL = 3 * 4
+FLOPS_PER_PIXEL = 4 * 18 + 1
+
+
+def work(shape):
+    """(bytes, float operations) of one call at ``shape`` = (h, w)."""
+    n = shape[0] * shape[1]
+    return BYTES_PER_PIXEL * n, FLOPS_PER_PIXEL * n
+
+
 def _neighbour(img: torch.Tensor, dx: int, dy: int, fill: float):
     """(value of the neighbour at (x + dx, y + dy), in-bounds mask)."""
     h, w = img.shape

@@ -125,17 +125,17 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    from dvo_tpu.utils.datasets import (
+    from dvo_tpu_torch.config import DVOConfig
+    from dvo_tpu_torch.utils.datasets import (
         Calibration,
         EuRoCSequence,
         InfoSequence,
         KinectCalibration,
         TUMSequence,
     )
-    from dvo_tpu.utils.trajectory import ate_rmse, read_tum, write_tum
-    from dvo_tpu_torch.config import DVOConfig
     from dvo_tpu_torch.utils.metrics import MetricsLogger
     from dvo_tpu_torch.utils.runner import run_kinect, run_monocular, run_rgbd
+    from dvo_tpu_torch.utils.trajectory import ate_rmse, read_tum, write_tum
 
     metrics = MetricsLogger(args.metrics)
     # mono estimates depth up to scale: ATE with Umeyama scale alignment
@@ -148,8 +148,7 @@ def main(argv=None):
     if args.stream:
         if args.mode != "mono" or args.format != "info":
             raise SystemExit("--stream supports --mode mono --format info")
-        from dvo_tpu.utils.stream import watch_directory
-        from dvo_tpu_torch.utils.stream import run_stream
+        from dvo_tpu_torch.utils.stream import run_stream, watch_directory
 
         calib = Calibration.from_yaml(args.calib) if args.calib else Calibration.logicool()
         with trace_ctx:
@@ -209,7 +208,7 @@ def main(argv=None):
     metrics.close()
     write_tum(args.out, ts, poses)
     if args.plot:
-        from dvo_tpu.utils.viz import plot_trajectory
+        from dvo_tpu_torch.utils.viz import plot_trajectory
 
         plot_trajectory(poses, args.plot, gt=read_tum(args.gt)[1] if args.gt else None)
     report = {

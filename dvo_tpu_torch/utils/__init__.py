@@ -1,4 +1,3 @@
-"""Host-side runners of the port: sequence runners, metrics, checkpoints,
-live streams and the keyframe gallery.  Dataset parsing, calibration,
-trajectories and the native decoder are ``dvo_tpu``'s own (they import no
-jax)."""
+"""Host-side runners of the port: sequence runners, dataset parsing and
+calibration, trajectories, metrics, checkpoints, live streams and the
+visualisations (the native decoder is ``dvo_tpu_torch.native``)."""

@@ -1,18 +1,21 @@
 """Per-frame metrics and timing — ``dvo_tpu.utils.metrics`` ported.
 
-``MetricsLogger`` writes ``dvo_tpu``'s JSONL records (the same keys and
-rounding: it is that logger, fed host copies of the port's results).
+``MetricsLogger`` writes ``dvo_tpu``'s JSONL records, one object per frame
+with the same keys and rounding (residuals, GN iterations, valid-pixel
+counts, keyframe events, depth-filter accept/reject, wall time), from host
+copies of the port's results; ``Timer`` waits for the card with
+``torch.cuda.synchronize`` before its clock stops.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
+from typing import IO, Optional
 
 import numpy as np
 import torch
-
-from dvo_tpu.utils.metrics import MetricsLogger as _ReferenceLogger
 
 
 def tree_map(fn, tree):
@@ -61,15 +64,55 @@ class Timer:
         return False
 
 
-class MetricsLogger(_ReferenceLogger):
+class MetricsLogger:
     """JSONL metrics sink; no-op when constructed with path=None.
     ``log_frame(result, seconds, timestamp)`` takes a ``StepResult`` row of
-    tensors (on any device) or of numpy arrays."""
+    tensors (on any device) or of numpy arrays; ``log(**kv)`` writes an
+    arbitrary record."""
+
+    def __init__(self, path: Optional[str] = None):
+        self._fh: Optional[IO] = open(path, "w") if path else None
+        self._n = 0
 
     @property
     def enabled(self) -> bool:
         return self._fh is not None
 
+    def log(self, **kv) -> None:
+        if self._fh is None:
+            return
+        self._fh.write(json.dumps(kv) + "\n")
+        self._fh.flush()
+
     def log_frame(self, result, seconds: float, timestamp: float = 0.0) -> None:
-        if self.enabled:   # no device->host copies when nothing is written
-            super().log_frame(tree_map(to_numpy, result), seconds, timestamp)
+        if self._fh is None:   # no device->host copies when nothing is written
+            return
+        result = tree_map(to_numpy, result)
+        tr = result.tracking
+        res = tr.residuals
+        active = res > 0
+        ba_cost = float(result.ba_cost)
+        self.log(
+            frame=self._n,
+            t=float(timestamp),
+            ms=round(seconds * 1e3, 3),
+            keyframe=bool(result.is_keyframe),
+            xi=[round(float(v), 6) for v in result.relative_xi],
+            gn_iters=[int(v) for v in tr.iterations],
+            final_residual=[
+                round(float(res[l][active[l]][-1]), 6) if active[l].any() else None
+                for l in range(res.shape[0])
+            ],
+            valid_pixels=[int(v) for v in tr.valid_counts.max(axis=1)],
+            map_observed=int(result.mapping.observed),
+            map_accepted=int(result.mapping.accepted),
+            map_rejected=int(result.mapping.rejected),
+            map_aged_out=int(result.mapping.aged_out),
+            ba_cost=round(ba_cost, 6) if ba_cost >= 0 else None,
+        )
+        self._n += 1
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None

@@ -2,7 +2,7 @@
 (timestamps, (N, 4, 4) world poses, per-frame seconds) out, for the
 monocular, RGB-D and Kinect dual-camera modes.
 
-Host data plane.  Frames are decoded by ``dvo_tpu.native`` (C++ decode,
+Host data plane.  Frames are decoded by ``dvo_tpu_torch.native`` (C++ decode,
 undistortion remap and prefetch threads) when its library loads or builds,
 else by PIL and NumPy on the calling thread (``decode_route``); that choice
 is the runner's only fallback.  The undistortion map is composed with the
@@ -44,13 +44,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dvo_tpu.utils.datasets import (
-    TUM_DEPTH_SCALE,
-    Calibration,
-    KinectCalibration,
-    build_undistort_map,
-    remap_nearest,
-)
 from dvo_tpu_torch.config import DVOConfig
 from dvo_tpu_torch.models.odometry import (
     monocular_init,
@@ -63,6 +56,14 @@ from dvo_tpu_torch.models.odometry import (
     rgbd_step,
 )
 from dvo_tpu_torch.ops.warp import map_depth_to_gray
+from dvo_tpu_torch.utils.datasets import (
+    TUM_DEPTH_SCALE,
+    Calibration,
+    KinectCalibration,
+    build_undistort_map,
+    decode_gray,
+    remap_nearest,
+)
 from dvo_tpu_torch.utils.metrics import device_sync, tree_map
 
 _MASK_ERROR = ("chunked path requires a constant validity mask (it is shipped once); "
@@ -218,10 +219,10 @@ def _run_chunks(n_steps, chunk, staging, fill_row, dispatch, on_frame):
 
 @functools.cache
 def decode_route() -> str:
-    """``"native"`` when ``dvo_tpu.native``'s library loads, or builds
+    """``"native"`` when ``dvo_tpu_torch.native``'s library loads, or builds
     (g++ and libpng): C++ decode and remap on prefetch threads.  Otherwise
     ``"pil"``: PIL and NumPy, one frame at a time on the calling thread."""
-    from dvo_tpu import native
+    from dvo_tpu_torch import native
 
     try:
         native.load_library()
@@ -233,7 +234,7 @@ def decode_route() -> str:
 def _png_dims(path):
     """(h, w) of an image from its header only."""
     if decode_route() == "native":
-        from dvo_tpu import native
+        from dvo_tpu_torch import native
 
         w, h, _ = native.png_info(path)
         return h, w
@@ -266,7 +267,7 @@ def _image_stream(paths, scale, srcmap, loaders: list):
     remapped) by ``decode_route()``.  A native loader is appended to
     ``loaders`` so that the caller closes it."""
     if decode_route() == "native":
-        from dvo_tpu import native
+        from dvo_tpu_torch import native
 
         loader = native.PrefetchLoader(list(paths), scale, map_xy=srcmap, border=0.0,
                                        threads=max(2, os.cpu_count() or 2))
@@ -274,10 +275,8 @@ def _image_stream(paths, scale, srcmap, loaders: list):
         for _idx, img, valid in loader:
             yield img, valid
         return
-    from dvo_tpu.utils.datasets import _decode_gray
-
     for p in paths:
-        img = _decode_gray(p) * scale
+        img = decode_gray(p) * scale
         if srcmap is not None:
             img, valid = remap_nearest(img, srcmap, border=0.0)
         else:
@@ -453,8 +452,7 @@ def run_monocular(
 
         save_state(checkpoint_out, state)
     if gallery_out:
-        from dvo_tpu.utils.viz import save_png
-        from dvo_tpu_torch.utils.viz import keyframe_gallery
+        from dvo_tpu_torch.utils.viz import keyframe_gallery, save_png
 
         save_png(gallery_out, keyframe_gallery(state.history))
     return out.result()

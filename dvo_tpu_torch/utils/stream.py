@@ -1,22 +1,76 @@
 """Live / streaming mode — ``dvo_tpu.utils.stream.run_stream`` ported
 (reference USE_CAMERA, main.cpp:10,26-30).  Frames are consumed one at a
-time as the iterable produces them, so an unbounded producer works; the
-directory watcher is ``dvo_tpu.utils.stream.watch_directory`` (no jax)."""
+time as the iterable produces them, so an unbounded producer works;
+``watch_directory`` is the producer for a directory that a capture tool
+(test/record.cpp:21-54: numbered PNGs) fills."""
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
-from dvo_tpu.utils.datasets import build_undistort_map, load_gray_normalized, remap_nearest
-from dvo_tpu.utils.trajectory import tum_line
 from dvo_tpu_torch.config import DVOConfig
 from dvo_tpu_torch.models.odometry import monocular_init, monocular_step
+from dvo_tpu_torch.utils.datasets import build_undistort_map, load_gray_normalized, remap_nearest
 from dvo_tpu_torch.utils.metrics import device_sync
 from dvo_tpu_torch.utils.runner import decode_route
+from dvo_tpu_torch.utils.trajectory import tum_line
+
+
+def watch_directory(
+    path: str,
+    suffix: str = ".png",
+    poll_s: float = 0.05,
+    idle_timeout_s: float = 5.0,
+    stop: Optional[Callable[[], bool]] = None,
+) -> Iterator[str]:
+    """Yield image paths from ``path`` in sorted filename order as they
+    appear (the record.cpp numbered-PNG convention sorts correctly).
+
+    A file is yielded once its size is stable across two polls (the
+    producer may still be writing it).  The generator ends after
+    ``idle_timeout_s`` with no new frames, or when ``stop()`` is truthy.
+    """
+    seen = set()
+    pending: dict = {}
+    last_new = time.monotonic()
+    while True:
+        if stop is not None and stop():
+            return
+        try:
+            names = sorted(os.listdir(path))
+        except FileNotFoundError:
+            names = []
+        for name in names:
+            if not name.endswith(suffix) or name in seen:
+                continue
+            full = os.path.join(path, name)
+            try:
+                size = os.path.getsize(full)
+            except OSError:
+                continue
+            if pending.get(name) == size:
+                seen.add(name)
+                del pending[name]
+                yield full
+                # Restart the idle clock AFTER the consumer returns: time
+                # the consumer spends on the frame (the kernels' build, tracking)
+                # is not producer idleness.
+                last_new = time.monotonic()
+            else:
+                # First sighting (or still growing) counts as activity:
+                # the consumer may hold this generator suspended for longer
+                # than idle_timeout_s (e.g. the kernels' build) and must not
+                # time out over files that arrived meanwhile.
+                pending[name] = size
+                last_new = time.monotonic()
+        if time.monotonic() - last_new > idle_timeout_s:
+            return
+        time.sleep(poll_s)
 
 
 def run_stream(
@@ -43,7 +97,7 @@ def run_stream(
     K = torch.tensor(np.asarray(calib.K, np.float32), device=device)
     native = None
     if decode_route() == "native":
-        from dvo_tpu import native
+        from dvo_tpu_torch import native
 
     def prep(frame):
         if isinstance(frame, str):

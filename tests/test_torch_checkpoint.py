@@ -23,17 +23,17 @@ import torch
 from dvo_tpu.models import odometry as jodo
 from dvo_tpu.utils import checkpoint as jckpt
 from dvo_tpu.utils.datasets import InfoSequence
-from dvo_tpu.utils.stream import watch_directory
 from dvo_tpu.utils.viz import keyframe_gallery as jgallery
+from dvo_tpu_torch.config import config_from_reference
 from dvo_tpu_torch.models import odometry as todo
 from dvo_tpu_torch.utils import checkpoint as tckpt
 from dvo_tpu_torch.utils import runner as trun
-from dvo_tpu_torch.utils.stream import run_stream
+from dvo_tpu_torch.utils.stream import run_stream, watch_directory
 from dvo_tpu_torch.utils.viz import keyframe_gallery
 
 from test_odometry import render_sequence
-from test_torch_odometry import CFG, H, STEP, W, _reset_planes
-from test_torch_runner import MONO_CFG, write_mono
+from test_torch_odometry import CFG, TCFG, H, STEP, W, _reset_planes
+from test_torch_runner import MONO_TCFG, write_mono
 
 torch.set_num_threads(1)
 
@@ -83,10 +83,10 @@ def _port_steps(kind, state, frames, resets=None):
     for k, i in enumerate(range(N_SAVED, N_SAVED + N_NEXT)):
         if kind == "mono":
             reset = None if resets is None else torch.tensor(resets[k])
-            state, res = todo.monocular_step(state, grays[i], masks[i], K, CFG, reset)
+            state, res = todo.monocular_step(state, grays[i], masks[i], K, TCFG, reset)
         else:
             state, res = todo.rgbd_step(state, grays[i], masks[i], depths[i], sigmas[i], K,
-                                        CFG)
+                                        TCFG)
         poses.append(res.T_world)
     return state, torch.stack(poses)
 
@@ -132,13 +132,13 @@ def test_dvo_tpu_checkpoint_loads_and_continues(kind, frames, jax_runs, tmp_path
 def test_port_checkpoint_round_trip_resumes_bit_identically(kind, frames, tmp_path):
     grays, masks, depths, sigmas, K = (torch.tensor(a) for a in frames)
     if kind == "mono":
-        state = todo.monocular_init(grays[0], masks[0], K, CFG,
+        state = todo.monocular_init(grays[0], masks[0], K, TCFG,
                                     generator=torch.Generator().manual_seed(11))
-        state, _ = todo.monocular_run(state, grays[1:N_SAVED], masks[1:N_SAVED], K, CFG)
+        state, _ = todo.monocular_run(state, grays[1:N_SAVED], masks[1:N_SAVED], K, TCFG)
     else:
-        state = todo.rgbd_init(grays[0], masks[0], depths[0], sigmas[0], K, CFG)
+        state = todo.rgbd_init(grays[0], masks[0], depths[0], sigmas[0], K, TCFG)
         state, _ = todo.rgbd_run(state, grays[1:N_SAVED], masks[1:N_SAVED],
-                                 depths[1:N_SAVED], sigmas[1:N_SAVED], K, CFG)
+                                 depths[1:N_SAVED], sigmas[1:N_SAVED], K, TCFG)
     path = str(tmp_path / "port.npz")
     tckpt.save_state(path, state)
     loaded = tckpt.load_state(path, "cpu")
@@ -158,7 +158,7 @@ def test_port_checkpoint_round_trip_resumes_bit_identically(kind, frames, tmp_pa
                                          ("ref/scenes/1/gx", "raises")])
 def test_missing_leaves_follow_the_allowlist(drop, expect, frames, tmp_path):
     grays, masks, _, _, K = (torch.tensor(a) for a in frames)
-    state = todo.monocular_init(grays[0], masks[0], K, CFG)
+    state = todo.monocular_init(grays[0], masks[0], K, TCFG)
     full = str(tmp_path / "full.npz")
     tckpt.save_state(full, state)
     with np.load(full) as data:
@@ -206,12 +206,12 @@ def test_run_stream_matches_the_runner(tmp_path):
     seen = []
     traj = str(tmp_path / "live.txt")
     _, poses, secs = run_stream(watch_directory(str(live), poll_s=0.01, idle_timeout_s=1.0),
-                                calib, MONO_CFG, seed=4, trajectory_out=traj,
+                                calib, MONO_TCFG, seed=4, trajectory_out=traj,
                                 on_pose=lambda i, T: seen.append(i), device="cpu")
     producer.join(timeout=30)
     assert not producer.is_alive()
     _, want, _ = trun.run_monocular(InfoSequence(os.path.join(seq, "info.txt")), calib,
-                                    MONO_CFG, seed=4, device="cpu")
+                                    MONO_TCFG, seed=4, device="cpu")
     assert poses.shape == want.shape == (6, 4, 4) and seen == list(range(6))
     np.testing.assert_allclose(poses, want, rtol=0, atol=POSE_TOL)
     assert len(secs) == 6 and np.loadtxt(traj).shape == (6, 8)

@@ -152,9 +152,10 @@ def test_rgbd_cli_matches_dvo_tpu_run(chunk, data, tmp_path):
 
 
 def test_rgbd_cli_on_the_pil_route_matches_dvo_tpu_run(data, tmp_path, monkeypatch):
-    """The CLI when ``dvo_tpu.native`` cannot load (no libpng): PIL decodes
-    the same 8-bit gray and 16-bit depth values, so the same tolerance."""
-    from dvo_tpu import native
+    """The CLI when ``dvo_tpu_torch.native`` cannot load (no libpng): PIL
+    decodes the same 8-bit gray and 16-bit depth values, so the same
+    tolerance."""
+    from dvo_tpu_torch import native
 
     def unavailable():
         raise native.NativeUnavailable("no libpng")
@@ -191,8 +192,8 @@ def test_kinect_cli_runs_the_runner(mode, data, tmp_path):
     """``--format kinect`` reads the dual-camera YAML and runs
     ``run_kinect`` (held against ``dvo_tpu`` in test_torch_runner) with the
     CLI's configuration and pre-cull stride: the same trajectory."""
-    from dvo_tpu.utils.datasets import KinectCalibration
     from dvo_tpu_torch.config import DVOConfig
+    from dvo_tpu_torch.utils.datasets import KinectCalibration
 
     out = str(tmp_path / "t.txt")
     report = cli(tcli, ["--data", data["kinect"], "--format", "kinect", "--mode", mode,

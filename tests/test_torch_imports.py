@@ -1,8 +1,9 @@
-"""The PyTorch port's package boundary: it imports without JAX, its kernel
-build targets sm_90a into a git-ignored directory, and a kernel wrapper
-handed CPU tensors runs the plain version without touching the CUDA
-library."""
+"""The PyTorch port's package boundary: it imports without JAX and without
+``dvo_tpu``, its kernel build targets sm_90a into a git-ignored directory,
+and a kernel wrapper handed CPU tensors runs the plain version without
+touching the CUDA library."""
 
+import ast
 import ctypes
 import subprocess
 import sys
@@ -13,40 +14,68 @@ import pytest
 import torch
 
 from dvo_tpu_torch.config import MapperConfig, TrackerConfig, resolve_device
-from dvo_tpu_torch.ops.cuda import _build, epipolar, framebuild, gn, regularize
+from dvo_tpu_torch.ops.cuda import _build, epipolar, framebuild, gn, gn_level, regularize
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (and chip_smoke.py) imports with ``jax``
-    unimportable, as on the GPU machine, which has no JAX."""
+    """Every module of the port (and chip_smoke.py) imports with ``jax`` and
+    ``dvo_tpu`` unimportable: the port keeps its own copy of what it needs."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys; sys.modules['jax'] = None; sys.modules['dvo_tpu'] = None\n"
         "import importlib, pkgutil, dvo_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(dvo_tpu_torch.__path__, 'dvo_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "assert 'dvo_tpu_torch.models.odometry' in names and 'dvo_tpu_torch.ops.cuda.gn' in names\n"
         "assert 'dvo_tpu_torch.run' in names and 'dvo_tpu_torch.utils.runner' in names\n"
+        "assert 'dvo_tpu_torch.native' in names and 'dvo_tpu_torch.utils.datasets' in names\n"
+        "assert not [m for m in sys.modules if m.startswith('dvo_tpu.')]\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 26
+    assert int(out.stdout.strip()) >= 30
+
+
+def _port_files():
+    return sorted((REPO / "dvo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(REPO).as_posix())
+def test_port_file_imports_nothing_of_dvo_tpu_or_jax(path):
+    """No import statement, at any depth of any file of the port, names
+    ``dvo_tpu`` or ``jax`` (or a module below them)."""
+    banned = ("dvo_tpu", "jax")
+    hits = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        hits += [(node.lineno, n) for n in names
+                 if any(n == b or n.startswith(b + ".") for b in banned)]
+    assert not hits, hits
 
 
 def test_build_command_targets_sm90a_in_ignored_dir(monkeypatch):
     monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
     out = _build.library_path()
-    cmd = _build.nvcc_command(out)
-    assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
-    assert "-shared" in cmd and "-fmad=false" in cmd and "--use_fast_math" not in cmd
-    assert {Path(c).name for c in cmd if c.endswith(".cu")} == {
-        "gn.cu", "epipolar.cu", "regularize.cu", "framebuild.cu"}
-    assert Path(cmd[cmd.index("-o") + 1]).parent == _build.BUILD_DIR
+    objs = [_build.BUILD_DIR / f"{src.stem}.o" for src in _build.sources()]
+    cmds = [_build.compile_command(src, obj) for src, obj in zip(_build.sources(), objs)]
+    link = _build.link_command(objs, out)
+    for cmd in cmds + [link]:
+        assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+        assert "--use_fast_math" not in cmd
+        assert Path(cmd[cmd.index("-o") + 1]).parent == _build.BUILD_DIR
+    assert all("-fmad=false" in cmd and "-c" in cmd for cmd in cmds)
+    assert "-shared" in link and link[-len(objs):] == [str(o) for o in objs]
+    assert {Path(c).name for cmd in cmds for c in cmd if c.endswith(".cu")} == {
+        "gn.cu", "gn_level.cu", "epipolar.cu", "regularize.cu", "framebuild.cu"}
     ignored = (REPO / ".gitignore").read_text().split()
     assert _build.BUILD_DIR.relative_to(REPO).as_posix() + "/" in ignored
 
@@ -89,6 +118,11 @@ def _gn_inputs(rng, h=12, w=16):
             torch.eye(4), 1, TrackerConfig())
 
 
+def _gn_level_inputs(rng, h=12, w=16):
+    *planes, K, _, level, cfg = _gn_inputs(rng, h, w)
+    return tuple(planes), K, torch.tensor([0.01, 0.0, 0.0, 0.0, 0.002, 0.0]), level, cfg
+
+
 def _epi_inputs(rng, h=10, w=12, c=2):
     fields = torch.from_numpy(rng.uniform(0.0, 1.0, (epipolar.N_FIELDS, h, w)).astype(np.float32))
     fields[epipolar.F_SLOT] = torch.from_numpy(rng.integers(0, c, (h, w)).astype(np.float32))
@@ -128,6 +162,7 @@ def _flat(out):
 
 @pytest.mark.parametrize("name,wrapper,plain,make", [
     ("gn", gn.gn_terms, gn.gn_terms_plain, _gn_inputs),
+    ("gn_level", gn_level.gn_level, gn_level.gn_level_plain, _gn_level_inputs),
     ("epipolar", epipolar.epipolar_update, epipolar.epipolar_update_plain, _epi_inputs),
     ("regularize", regularize.regularize, regularize.regularize_plain, _reg_inputs),
     ("framebuild", framebuild.build_pyramid_planes, framebuild.build_pyramid_planes_plain,
@@ -149,7 +184,8 @@ def test_cpu_tensors_take_the_plain_path(name, wrapper, plain, make, rng, monkey
     assert len(got) == len(want) > 0
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert _build.LAUNCHES == {"gn": 0, "epipolar": 0, "regularize": 0, "framebuild": 0}
+    assert _build.LAUNCHES == {"gn": 0, "gn_level": 0, "epipolar": 0, "regularize": 0,
+                               "framebuild": 0}
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -184,3 +220,28 @@ def test_framebuild_launch_checks_its_inputs(call, match, rng, monkeypatch):
     g, m, d, s, _ = _build_inputs(rng, 12, 12)
     with pytest.raises(ValueError, match=match):
         call(g, m, d, s)
+
+
+@pytest.mark.parametrize("change,match", [
+    (lambda a: a["planes"].__setitem__(0, a["planes"][0].double()), "obj_gray: dtype"),
+    (lambda a: a["planes"].__setitem__(1, a["planes"][1].float()), "obj_mask: dtype"),
+    (lambda a: a["planes"].__setitem__(4, a["planes"][4][:, :-1]), "ref_gray: shape"),
+    (lambda a: a["planes"].__setitem__(6, a["planes"][6].T.contiguous().T), "ref_gx: not contiguous"),
+    (lambda a: a["planes"].pop(), "8 planes"),
+    (lambda a: a.__setitem__("K", a["K"][:2]), "K: shape"),
+    (lambda a: a.__setitem__("xi0", a["xi0"].double()), "xi0: dtype"),
+    (lambda a: a.__setitem__("xi0", torch.zeros(12)[::2]), "xi0: not contiguous"),
+])
+def test_gn_level_launch_checks_its_inputs(change, match, rng, monkeypatch):
+    """On the launch route every input is checked before the library is
+    touched (the kernel takes raw pointers)."""
+    def no_library():
+        raise AssertionError("reached the library with a bad input")
+
+    monkeypatch.setattr(gn_level, "resolve_device", lambda _: "cuda")
+    monkeypatch.setattr(_build, "library", no_library)
+    planes, K, xi0, level, cfg = _gn_level_inputs(rng)
+    args = {"planes": list(planes), "K": K, "xi0": xi0}
+    change(args)
+    with pytest.raises(ValueError, match=match):
+        gn_level.gn_level(tuple(args["planes"]), args["K"], args["xi0"], level, cfg)

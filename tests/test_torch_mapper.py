@@ -24,6 +24,7 @@ from dvo_tpu.models import mapper as jmapper
 from dvo_tpu.models.frame import build_frame_with_depth
 from dvo_tpu.ops.warp import warp_image
 from dvo_tpu_torch.models import history as thistory
+from dvo_tpu_torch.config import config_from_reference
 from dvo_tpu_torch.models import mapper as tmapper
 from dvo_tpu_torch.models.odometry import frame_from_reference
 from dvo_tpu_torch.ops.cuda import epipolar, regularize
@@ -51,7 +52,8 @@ def _assert_maps_close(got, want, share=0.995):
 def test_need_new_keyframe_matches(rel, frame_id, ref_id):
     rel = np.asarray(rel, np.float32)
     cfg = MapperConfig()
-    assert bool(tmapper.need_new_keyframe(_t(rel), frame_id, ref_id, cfg)) == bool(
+    assert bool(tmapper.need_new_keyframe(_t(rel), frame_id, ref_id,
+                                          config_from_reference(cfg))) == bool(
         jmapper.need_new_keyframe(jnp.asarray(rel), frame_id, ref_id, cfg))
 
 
@@ -86,7 +88,8 @@ def test_regularize_plain_matches(rng, spread):
     depth[3, 3] = 7.0
     sigma = (0.05 + 0.45 * rng.random((h, w))).astype(np.float32)
     j = jmapper.regularize(jnp.asarray(depth), jnp.asarray(sigma))
-    t = regularize.regularize_plain(_t(depth), _t(sigma), MapperConfig())
+    t = regularize.regularize_plain(_t(depth), _t(sigma),
+                                    config_from_reference(MapperConfig()))
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6, atol=1e-6)
 
 
@@ -170,12 +173,13 @@ def _depth_update_case(rng, h, w, poses, obj_xi, ages, cfg):
                                 jnp.asarray(sigma), jnp.asarray(age), jh, key, cfg)
     tobj = frame_from_reference(jax.tree.map(np.asarray, obj_frame), "cpu").scenes[0]
     tout = tmapper.depth_update(tobj, _t(obj_xi), _t(rel), _t(prior), _t(sigma), _t(age),
-                                _port_history(jh), _t(reset), cfg)
+                                _port_history(jh), _t(reset), config_from_reference(cfg))
     return jout, tout
 
 
 CFG = MapperConfig(crop_x=(4, 76), crop_y=(4, 56), max_steps=40,
                    luminance_sigma=0.25, epipolar_sigma=0.25)
+TCFG = config_from_reference(CFG)
 
 
 @pytest.mark.parametrize("poses,obj_xi,ages", [
@@ -213,11 +217,11 @@ def test_epipolar_plain_is_what_depth_update_runs(rng):
     args = (obj, _t(np.array([-0.1, 0, 0, 0, 0, 0], np.float32)),
             _t(np.array([-0.05, 0, 0, 0, 0, 0], np.float32)), _t(depth),
             torch.full((h, w), 0.3), torch.zeros((h, w), dtype=torch.int32), hist,
-            torch.full((h, w), 1.0), CFG)
+            torch.full((h, w), 1.0), TCFG)
     fields, aged_out = tmapper.epipolar_fields(*args)
     assert fields.shape == (epipolar.N_FIELDS, h, w) and int(aged_out) == 0
     d, s, a, st = epipolar.epipolar_update_plain(fields, hist.gray, hist.gx, hist.gy,
-                                                 hist.gmask, CFG)
+                                                 hist.gmask, TCFG)
     d2, s2, a2, st2 = tmapper.depth_update(*args)
     torch.testing.assert_close(d, d2, rtol=0, atol=0)
     torch.testing.assert_close(s, s2, rtol=0, atol=0)

@@ -18,6 +18,7 @@ import torch
 
 from dvo_tpu.config import DVOConfig, MapperConfig, PyramidConfig, TrackerConfig
 from dvo_tpu.models import odometry as jodo
+from dvo_tpu_torch.config import config_from_reference
 from dvo_tpu_torch.models import odometry as todo
 
 from test_odometry import render_sequence
@@ -35,6 +36,7 @@ CFG = DVOConfig(
     mapper=MapperConfig(crop_x=(8, 72), crop_y=(6, 54), max_steps=40, max_forward=4,
                         luminance_sigma=0.25, epipolar_sigma=0.25, accept_sigma=(0.0, 2.0)),
 )
+TCFG = config_from_reference(CFG)   # the port's own classes, same values
 
 
 @pytest.fixture(scope="module")
@@ -66,7 +68,7 @@ def runs(sequence):
                                  jnp.asarray(K), CFG)
     sp = todo.state_from_reference(jax.tree.map(np.asarray, st0), "cpu")
     stp, rp = todo.monocular_run(sp, torch.tensor(grays[1:]), torch.tensor(masks[1:]),
-                                 torch.tensor(K), CFG,
+                                 torch.tensor(K), TCFG,
                                  reset_depths=torch.tensor(_reset_planes(st0.key, N - 1, CFG)))
     return (stj, rj), (stp, rp)
 
@@ -132,10 +134,10 @@ def test_uint8_input_and_generator_draws(sequence):
 
     def run(frames):
         st = todo.monocular_init(torch.tensor(frames[0]), torch.tensor(masks[0]),
-                                 torch.tensor(K), CFG, noise=noise,
+                                 torch.tensor(K), TCFG, noise=noise,
                                  generator=torch.Generator().manual_seed(5))
         return todo.monocular_run(st, torch.tensor(frames[1:]), torch.tensor(masks[0]),
-                                  torch.tensor(K), CFG)[1]
+                                  torch.tensor(K), TCFG)[1]
 
     a, b = run(u8), run(u8)
     c = run(u8.astype(np.float32) / np.float32(255.0))
@@ -153,21 +155,22 @@ def test_culled_input_matches_pre_culled(sequence):
     K2 = K.copy()
     K2[:2] *= 2.0
     K2[2, 2] = 1.0
-    cfg1 = dataclasses.replace(CFG, pyramid=PyramidConfig(levels=2, culls=1))
+    cfg1 = config_from_reference(
+        dataclasses.replace(CFG, pyramid=PyramidConfig(levels=2, culls=1)))
     noise = torch.zeros((H, W))
     st = todo.monocular_init(torch.tensor(big[0]), torch.tensor(bigm[0]), torch.tensor(K2),
                              cfg1, noise=noise)
     r1 = todo.monocular_run(st, torch.tensor(big[1:]), torch.tensor(bigm[1:]),
                             torch.tensor(K2), cfg1, reset_depths=torch.ones((2, H, W)))[1]
     st = todo.monocular_init(torch.tensor(grays[0]), torch.tensor(masks[0]), torch.tensor(K),
-                             CFG, noise=noise)
+                             TCFG, noise=noise)
     r0 = todo.monocular_run(st, torch.tensor(grays[1:3]), torch.tensor(masks[1:3]),
-                            torch.tensor(K), CFG, reset_depths=torch.ones((2, H, W)))[1]
+                            torch.tensor(K), TCFG, reset_depths=torch.ones((2, H, W)))[1]
     torch.testing.assert_close(r1.T_world, r0.T_world, rtol=0, atol=1e-6)
 
 
 def test_bundle_adjustment_is_refused(sequence):
     grays, masks, K = sequence
-    cfg = dataclasses.replace(CFG, ba=dataclasses.replace(CFG.ba, enabled=True))
+    cfg = dataclasses.replace(TCFG, ba=dataclasses.replace(TCFG.ba, enabled=True))
     with pytest.raises(NotImplementedError):
         todo.monocular_init(torch.tensor(grays[0]), torch.tensor(masks[0]), torch.tensor(K), cfg)

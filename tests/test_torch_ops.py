@@ -18,6 +18,7 @@ from dvo_tpu.ops import image as jimage
 from dvo_tpu.ops import sampling as jsampling
 from dvo_tpu.ops import warp as jwarp
 from dvo_tpu_torch.ops import depth_filter as tdf
+from dvo_tpu_torch.config import config_from_reference
 from dvo_tpu_torch.ops import image as timage
 from dvo_tpu_torch.ops import sampling as tsampling
 from dvo_tpu_torch.ops import warp as twarp
@@ -193,13 +194,13 @@ def test_depth_filter_matches(rng):
     ju = jdf.gaussian_update_with_reset(key, *(jnp.asarray(a) for a in (mu, sg, d, s)),
                                         obs_valid=jnp.asarray(obs), cfg=cfg)
     tu = tdf.gaussian_update_with_reset(*(_t(a) for a in (mu, sg, d, s)), _t(reset),
-                                        obs_valid=_t(obs), cfg=cfg)
+                                        obs_valid=_t(obs), cfg=config_from_reference(cfg))
     for a, b in zip(tu, ju):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-6)
 
 
 def test_draw_reset_depth_range():
     g = torch.Generator().manual_seed(0)
-    r = tdf.draw_reset_depth((64, 64), DepthFilterConfig(), g)
+    r = tdf.draw_reset_depth((64, 64), config_from_reference(DepthFilterConfig()), g)
     assert r.shape == (64, 64) and r.dtype == torch.float32
     assert float(r.min()) >= 0.5 and float(r.max()) <= 2.0

@@ -21,10 +21,12 @@ import torch
 
 from dvo_tpu.config import DVOConfig, PyramidConfig, TrackerConfig
 from dvo_tpu.models import odometry as jodo
+from dvo_tpu_torch.config import config_from_reference
 from dvo_tpu_torch.models import odometry as todo
 
 from test_odometry import render_sequence
 from test_torch_odometry import CFG as MONO_CFG
+from test_torch_odometry import TCFG as MONO_TCFG
 from test_torch_odometry import _reset_planes
 
 torch.set_num_threads(1)
@@ -64,7 +66,8 @@ def rgbd_runs(request):
     st0 = jodo.rgbd_init(*_j(grays[0], masks[0], depths[0], sigmas[0], K), cfg)
     stj, rj = jodo.rgbd_run(st0, *_j(grays[1:], masks[1:], depths[1:], sigmas[1:], K), cfg)
     sp = todo.rgbd_state_from_reference(jax.tree.map(np.asarray, st0), "cpu")
-    stp, rp = todo.rgbd_run(sp, *_t(grays[1:], masks[1:], depths[1:], sigmas[1:], K), cfg)
+    stp, rp = todo.rgbd_run(sp, *_t(grays[1:], masks[1:], depths[1:], sigmas[1:], K),
+                            config_from_reference(cfg))
     return (stj, rj), (stp, rp)
 
 
@@ -92,8 +95,8 @@ def test_chunked_run_equals_per_frame(small_sequence, driver):
     chunks, or stepped frame by frame, equals one chunk exactly; one (H, W)
     mask for the chunk equals that mask repeated per frame."""
     grays, masks, depths, sigmas, K = small_sequence
-    cfg = DVOConfig.rgbd()
-    cfg = dataclasses.replace(cfg, pyramid=PyramidConfig(levels=2, culls=0))
+    cfg = config_from_reference(
+        dataclasses.replace(DVOConfig.rgbd(), pyramid=PyramidConfig(levels=2, culls=0)))
     s0 = todo.rgbd_init(*_t(grays[0], masks[0], depths[0], sigmas[0], K), cfg)
     rest = (grays[1:], masks[1:], depths[1:], sigmas[1:])
     if driver == "shared_mask":
@@ -130,7 +133,8 @@ def test_rgbd_run_raw_equals_host_converted(small_sequence, culls):
     that host-converted floats give, bit for bit."""
     grays, masks, depths, _, K = small_sequence
     u8, counts = _raw(grays, depths)
-    cfg = dataclasses.replace(DVOConfig.rgbd(), pyramid=PyramidConfig(levels=2, culls=culls))
+    cfg = config_from_reference(
+        dataclasses.replace(DVOConfig.rgbd(), pyramid=PyramidConfig(levels=2, culls=culls)))
     gray_f = u8.astype(np.float32) * np.float32(1.0 / 255.0)
     depth_f = counts.astype(np.float32) * np.float32(1.0 / 5000.0)
     sigma_f = np.where(depth_f > 1e-6, 0.1, 1.0).astype(np.float32)
@@ -159,7 +163,8 @@ def test_raw_depth_conversion_matches_dvo_tpu(small_sequence):
     s0 = jodo.rgbd_init(*_j(gray_f, masks[0], d0, np.full_like(d0, 0.1), K), cfg)
     stj, _ = jodo.rgbd_run_raw(s0, *_j(u8[1:], masks[1:3], counts[1:], K), cfg)
     sp = todo.rgbd_state_from_reference(jax.tree.map(np.asarray, s0), "cpu")
-    stp, _ = todo.rgbd_run_raw(sp, *_t(u8[1:], masks[1:3], counts[1:], K), cfg)
+    stp, _ = todo.rgbd_run_raw(sp, *_t(u8[1:], masks[1:3], counts[1:], K),
+                               config_from_reference(cfg))
     for a, b in zip(stp.ref.scenes, stj.ref.scenes):
         for name in ("depth", "sigma", "gray"):
             np.testing.assert_array_equal(getattr(a, name).numpy(), np.asarray(getattr(b, name)))
@@ -182,8 +187,8 @@ def mono_depth_runs():
     st0 = jodo.monocular_init_with_depth(*_j(grays[0], masks[0], depth0, sigma0, K),
                                          jax.random.PRNGKey(4), MONO_CFG)
     stj, rj = jodo.monocular_run(st0, *_j(grays[1:], masks[1:], K), MONO_CFG)
-    sp = todo.monocular_init_with_depth(*_t(grays[0], masks[0], depth0, sigma0, K), MONO_CFG)
-    stp, rp = todo.monocular_run(sp, *_t(grays[1:], masks[1:], K), MONO_CFG,
+    sp = todo.monocular_init_with_depth(*_t(grays[0], masks[0], depth0, sigma0, K), MONO_TCFG)
+    stp, rp = todo.monocular_run(sp, *_t(grays[1:], masks[1:], K), MONO_TCFG,
                                  reset_depths=torch.from_numpy(_reset_planes(st0.key, 6, MONO_CFG)))
     return (stj, rj), (stp, rp)
 

@@ -45,6 +45,7 @@ from dvo_tpu.config import DVOConfig, MapperConfig, PyramidConfig, TrackerConfig
 from dvo_tpu.utils import runner as jrun
 from dvo_tpu.utils.datasets import Calibration, InfoSequence, KinectCalibration
 from dvo_tpu.utils.metrics import MetricsLogger as JMetrics
+from dvo_tpu_torch.config import config_from_reference
 from dvo_tpu_torch.utils import runner as trun
 from dvo_tpu_torch.utils.metrics import MetricsLogger
 
@@ -68,6 +69,9 @@ MONO_CFG = DVOConfig(
 )
 RGBD_CFG = DVOConfig(pyramid=PyramidConfig(levels=2, culls=1),
                      tracker=TrackerConfig(min_residual=0.0))
+# The port's own classes with the same values.
+MONO_TCFG = config_from_reference(MONO_CFG)
+RGBD_TCFG = config_from_reference(RGBD_CFG)
 
 
 def write_png(path, arr):
@@ -230,16 +234,16 @@ def _port_run(name, sequences, chunk, monkeypatch, metrics=None):
     if name == "mono":
         h, w = H >> 1, W >> 1
         Planes(monkeypatch, *jax_planes(jax.random.PRNGKey(3), N - 1, h, w, MONO_CFG, True))
-        return trun.run_monocular(_seq(path), calib, MONO_CFG, seed=3, chunk=chunk,
+        return trun.run_monocular(_seq(path), calib, MONO_TCFG, seed=3, chunk=chunk,
                                   metrics=metrics, device="cpu")
     if name == "rgbd":
-        return trun.run_rgbd(_seq(path), calib, RGBD_CFG, chunk=chunk, metrics=metrics,
+        return trun.run_rgbd(_seq(path), calib, RGBD_TCFG, chunk=chunk, metrics=metrics,
                              device="cpu")
     mode = name.split("_")[1]
     if mode == "mono":
         _, resets = jax_planes(jax.random.PRNGKey(0), N - 1, H >> 1, W >> 1, MONO_CFG, False)
         Planes(monkeypatch, None, resets)
-    return trun.run_kinect(_seq(path), calib, MONO_CFG if mode == "mono" else RGBD_CFG, mode,
+    return trun.run_kinect(_seq(path), calib, MONO_TCFG if mode == "mono" else RGBD_TCFG, mode,
                            chunk=chunk, metrics=metrics, device="cpu")
 
 
@@ -281,7 +285,7 @@ def test_runner_pil_route_matches_dvo_tpu(name, chunk, sequences, reference, mon
     the same reference (decoded natively): these sequences hold 8-bit gray,
     16-bit depth and R = G = B color PNGs, which both routes decode alike,
     so the tolerances are the same."""
-    from dvo_tpu import native
+    from dvo_tpu_torch import native
 
     def no_native(*a, **k):
         raise AssertionError("the native loader ran on the PIL route")
@@ -296,8 +300,8 @@ def test_decode_routes_agree_on_gray_and_bound_color_luma(tmp_path):
     depth equal; color within half a level, as the runner's docstring
     states (PIL rounds the luma, native keeps its fraction), and equal
     after rounding on all but the near-ties."""
-    from dvo_tpu import native
-    from dvo_tpu.utils.datasets import _decode_gray
+    from dvo_tpu_torch import native
+    from dvo_tpu_torch.utils.datasets import decode_gray
 
     rng = np.random.default_rng(0)
     images = dict(gray=rng.integers(0, 256, (48, 64), dtype=np.uint8),
@@ -307,7 +311,7 @@ def test_decode_routes_agree_on_gray_and_bound_color_luma(tmp_path):
     for kind, img in images.items():
         path = str(tmp_path / f"{kind}.png")
         write_png(path, img)
-        got[kind] = native.decode_png_f32(path, 1.0), _decode_gray(path)
+        got[kind] = native.decode_png_f32(path, 1.0), decode_gray(path)
     for kind in ("gray", "depth"):
         np.testing.assert_array_equal(*got[kind])
         np.testing.assert_array_equal(got[kind][1], images[kind])
@@ -381,7 +385,7 @@ def test_chunked_path_requires_a_constant_mask(runner, sequences, monkeypatch):
     monkeypatch.setattr(trun, "_image_stream", varying)
     path, calib = sequences[runner]
     run = trun.run_rgbd if runner == "rgbd" else trun.run_monocular
-    cfg = RGBD_CFG if runner == "rgbd" else MONO_CFG
+    cfg = RGBD_TCFG if runner == "rgbd" else MONO_TCFG
     with pytest.raises(ValueError, match="constant validity mask"):
         run(_seq(path), calib, cfg, chunk=CHUNK, device="cpu")
 

@@ -18,6 +18,7 @@ import torch
 from dvo_tpu.config import TrackerConfig
 from dvo_tpu.models import tracker as jtracker
 from dvo_tpu.models.frame import build_frame_with_depth
+from dvo_tpu_torch.config import config_from_reference
 from dvo_tpu_torch.models import tracker as ttracker
 from dvo_tpu_torch.models.odometry import frame_from_reference
 
@@ -79,7 +80,8 @@ def test_gn_terms_plain_matches(rng, level_index, cfg):
     jo, jr = obj.scenes[0], ref.scenes[0]
     to, tr = _port(obj).scenes[0], _port(ref).scenes[0]
     j = jtracker.gn_terms(*_scene_args(jo, jr), jnp.asarray(XI_EVAL), level_index, cfg)
-    t = ttracker.gn_terms(*_scene_args(to, tr), torch.tensor(XI_EVAL), level_index, cfg)
+    t = ttracker.gn_terms(*_scene_args(to, tr), torch.tensor(XI_EVAL), level_index,
+                          config_from_reference(cfg))
     _assert_terms_close(t, j)
 
 
@@ -90,7 +92,7 @@ def test_gn_terms_plain_at_mask_borders(rng):
     j = jtracker.gn_terms(*_scene_args(obj.scenes[0], ref.scenes[0]), jnp.asarray(XI_EVAL), 0,
                           TrackerConfig())
     t = ttracker.gn_terms(*_scene_args(_port(obj).scenes[0], _port(ref).scenes[0]),
-                          torch.tensor(XI_EVAL), 0, TrackerConfig())
+                          torch.tensor(XI_EVAL), 0, config_from_reference(TrackerConfig()))
     _assert_terms_close(t, j)
 
 
@@ -123,7 +125,7 @@ def test_track_matches(rng, xi_true, cfg):
     iterations, same per-iteration statistics."""
     obj, ref = _frames(rng, 60, 80, 2, np.asarray(xi_true, np.float32))
     j = jtracker.track(obj, ref, cfg)
-    t = ttracker.track(_port(obj), _port(ref), cfg)
+    t = ttracker.track(_port(obj), _port(ref), config_from_reference(cfg))
     np.testing.assert_array_equal(t.iterations.numpy(), np.asarray(j.iterations))
     np.testing.assert_allclose(t.xi.numpy(), np.asarray(j.xi), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(t.valid_counts.numpy(), np.asarray(j.valid_counts))
@@ -137,7 +139,8 @@ def test_track_with_warm_start_matches(rng):
     xi0 = np.array([0.005, 0, 0.002, 0, 0.001, 0], np.float32)
     cfg = TrackerConfig()
     j = jtracker.track(obj, ref, cfg, xi0=jnp.asarray(xi0))
-    t = ttracker.track(_port(obj), _port(ref), cfg, xi0=torch.tensor(xi0))
+    t = ttracker.track(_port(obj), _port(ref), config_from_reference(cfg),
+                       xi0=torch.tensor(xi0))
     np.testing.assert_array_equal(t.iterations.numpy(), np.asarray(j.iterations))
     np.testing.assert_allclose(t.xi.numpy(), np.asarray(j.xi), rtol=0, atol=1e-5)
 
@@ -145,6 +148,6 @@ def test_track_with_warm_start_matches(rng):
 def test_track_result_shapes(rng):
     obj, ref = _frames(rng, 24, 32, 2, XI)
     cfg = dataclasses.replace(TrackerConfig(), max_iterations=4)
-    t = ttracker.track(_port(obj), _port(ref), cfg)
+    t = ttracker.track(_port(obj), _port(ref), config_from_reference(cfg))
     assert t.residuals.shape == (2, 4) and t.valid_counts.dtype == torch.int32
     assert t.iterations.shape == (2,) and int(t.iterations.max()) <= 4
