@@ -15,23 +15,39 @@ Phases, one line each (or a few):
                 run, a level with no valid pixel; timed against the plain
                 loop and the stepwise loop, one ``gn`` launch per step) at
                 30x40, 60x80 and 120x160 (mono) and at 27x32, 53x64, 106x128
-                and 212x256 (RGB-D), epipolar with the full 8-slot ring and
-                regularize at 120x160, and the frame build (held equal with
-                ``torch.equal``) for the RGB-D build and one plane at
-                212x256 x 4 levels and, at 120x160 x 3, the mono tracking
-                build, a build with depth, the depth/sigma pair and one
-                plane.  All of it but the RGB-D part again at Kinect mono's
-                shapes (106x128 x 3), on a ``monocular_init_with_depth``
-                state of the RGB-D frames run until its ring is full.  Call
-                times from CUDA events, device times from ``torch.profiler``;
-                each kernel's bound from its ``work()`` on these inputs.
+                and 212x256 (RGB-D); epipolar with the full 8-slot ring at
+                120x160, both entries (the fused one against
+                ``epipolar_fields`` + ``epipolar_update_plain``, the fields one
+                against ``epipolar_update_plain``: maps, ages, all counts, the
+                same bits on a second run, whether bit-identical; timed
+                against the plain version and against fields + the fields
+                entry), and once more on a state early in the run (ring not
+                full, some pixels aged out); the same kernel built with 4, 8,
+                16 and 32 lanes a pixel, one line each; regularize; the
+                regularize-and-cull launch (``torch.equal`` on every level of
+                both pyramids, timed against the three launches it replaces);
+                and the frame build (held equal with ``torch.equal``) for the
+                RGB-D build and one plane at 212x256 x 4 levels and, at
+                120x160 x 3, the mono tracking build, a build with depth, the
+                depth/sigma pair and one plane.  All of it but the RGB-D part
+                again at Kinect mono's shapes (106x128 x 3), on a
+                ``monocular_init_with_depth`` state of the RGB-D frames run
+                until its ring is full.  Call times from CUDA events, device
+                times from ``torch.profiler``; each kernel's bound from its
+                ``work()`` on these inputs.
   4. main     — ``monocular_init`` + ``monocular_run`` with
                 ``DVOConfig.monocular()`` on 48 synthetic 640x480 uint8
                 frames (chunks of 24); every kernel of the path must have
-                launched, ``gn_level`` three times per frame.  Then the same
-                run with the stepwise GN loop, twice, and with the level
-                kernel again (A, B, B, A): ms/frame of each, and device ops
-                per frame of both from ``torch.profiler``.
+                launched: per frame ``gn_level`` three times, the frame build
+                and the regularize-and-cull launch once, ``regularize`` never,
+                epipolar once per frame that is no keyframe.  Then the same
+                run with the mapper on its fields route (the 24 field planes
+                prepared in PyTorch ops and handed to the kernel's fields
+                entry; the reference rebuilt by three launches), twice, and
+                on the fused route again (A, B, B, A): ms/frame, device ops
+                per frame and idle share of each, and one frame that is no
+                keyframe profiled on both.  Then the stepwise GN loop, twice,
+                and the level kernel again (A, B, B, A), as for the routes.
   5. cpu      — the first 8 frames again on the CPU (plain versions, same
                 bootstrap noise and reset planes); poses and keyframe flags
                 must agree with the CUDA run.
@@ -107,6 +123,7 @@ KINECT_FRAMES = 8       # Kinect pairs: 1920x1080 color, 512x424 depth
 KINECT_CHUNK = 3        # 7 steps: two chunks and a one-frame tail
 KINECT_CPU_FRAMES = 5   # the Kinect CLI on the CPU: one chunk and a one-frame tail
 KINECT_WARM = 8         # frames per run while the Kinect-mono ring fills
+EARLY_FRAMES = 6        # the mono run whose ring is not full yet (2 promotions)
 
 # Tolerances of a kernel against its plain version on the card.  Both are
 # built to round the same way per pixel (no FMA contraction, IEEE division
@@ -183,14 +200,18 @@ def device_profile(fn, calls: int = 1, whole: bool = False):
     """``fn()`` ``calls`` times under ``torch.profiler``: (device ops per
     call, device-busy microseconds per call), from the CUDA-side events
     (kernels, copies and memsets).  The profiler can lose the window's first
-    event, and now and then a whole window: with ``whole`` (a call that
-    issues the same few ops every time) the count is rounded up to a whole
-    number and the time is the mean event's times that count, and a window
-    that lost more than one event is taken again, as is an empty one."""
+    event, and now and then a few more or a whole window.  With ``whole`` (a
+    call that issues the same ops every time) the events are therefore
+    counted by name: an op's count per call is its events over ``calls``,
+    rounded, and its time that count times its mean event — a lost event
+    moves neither.  A window that lost more than one event in twenty is taken
+    again, up to PROFILE_TRIES times, and the fullest window is used; only a
+    run of empty windows fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    best = []
     for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -198,16 +219,23 @@ def device_profile(fn, calls: int = 1, whole: bool = False):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        ops = -(-len(events) // calls)
-        if events and (not whole or len(events) >= ops * calls - 1):
+        best = max(best, events, key=len)
+        expected = -(-len(events) // calls) * calls
+        if events and (not whole or len(events) >= expected - expected // 20):
             break
-    else:
-        raise AssertionError(f"torch.profiler lost device events in {PROFILE_TRIES} windows "
-                             f"({len(events)} events in the last)")
-    busy_us = sum(e.time_range.elapsed_us() for e in events)
-    if whole:
-        return ops, busy_us / len(events) * ops
-    return len(events) / calls, busy_us / calls
+    if not best:
+        raise AssertionError(f"torch.profiler showed no device event in {PROFILE_TRIES} windows")
+    if not whole:
+        return len(best) / calls, sum(e.time_range.elapsed_us() for e in best) / calls
+    by_name = {}
+    for e in best:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    ops, busy_us = 0, 0.0
+    for durations in by_name.values():
+        per_call = int(len(durations) / calls + 0.5)
+        ops += per_call
+        busy_us += per_call * statistics.mean(durations)
+    return ops, busy_us
 
 
 def with_bound(entry, nbytes, flops):
@@ -460,22 +488,179 @@ def compare_maps(name, got, want):
     return err.max().item(), share
 
 
+def depth_update_args(state, gray, mask, K, cfg):
+    """The arguments ``models.mapper.depth_update`` gets for the next frame
+    of ``state`` (already culled): tracked, posed, with a reset plane from
+    SEED.  Returns (the arguments, the tracked frame)."""
+    from dvo_tpu_torch.models.frame import build_tracking_frame, with_pose
+    from dvo_tpu_torch.models.tracker import track
+    from dvo_tpu_torch.ops.depth_filter import draw_reset_depth
+
+    dev = gray.device
+    frame = build_tracking_frame(gray, mask, K, cfg.pyramid.levels, 0, state.frame_count)
+    frame = with_pose(frame, track(frame, state.ref, cfg.tracker).xi, state.ref.xi)
+    base = state.ref.base
+    reset = draw_reset_depth(base.shape, cfg.mapper.depth_filter,
+                             torch.Generator(device=dev).manual_seed(SEED), dev)
+    return (frame.base, frame.xi, frame.relative_xi, base.depth, base.sigma, state.ref.age,
+            state.history, reset, cfg.mapper), frame
+
+
+STAT_NAMES = ("observed", "accepted", "rejected", "aged_out")
+
+
+def check_epipolar(label, args, timed_too=True):
+    """Both entries of ``csrc/epipolar.cu`` on the ``depth_update`` arguments
+    ``args``: the fused entry (through ``models.mapper.depth_update``)
+    against ``epipolar_fields`` + ``epipolar_update_plain``, the fields entry
+    against ``epipolar_update_plain``; depth and sigma by ``compare_maps``,
+    the share of equal ages, every count within STATS_TOL; a second run of
+    each must give the same bits.  Returns (the fields entry's result dict,
+    the fused entry's)."""
+    from dvo_tpu_torch.models import mapper
+    from dvo_tpu_torch.ops.cuda import epipolar
+
+    obj, obj_xi, rel_xi, depth, sigma, age, hist, reset, cfg = args
+    ring = (hist.gray, hist.gx, hist.gy, hist.gmask)
+    fields, aged_out = mapper.epipolar_fields(*args)
+    want = epipolar.epipolar_update_plain(fields, *ring, cfg)
+    want_stats = want[3].tolist() + [int(aged_out)]
+    table = mapper.pose_table(obj.K, obj_xi, rel_xi, hist)
+
+    def fused_entry():
+        return epipolar.epipolar_fused(obj.gray, obj.mask, depth, sigma, age, reset, table,
+                                       *ring, hist.head, hist.count, cfg)
+
+    def unpack(out):
+        return out[:3] + (torch.stack([getattr(out[3], k) for k in STAT_NAMES]),)
+
+    runs = {
+        "fields": (lambda: epipolar.epipolar_update(fields, *ring, cfg), want_stats[:3]),
+        "fused": (lambda: unpack(mapper.depth_update(*args)), want_stats),
+    }
+    out = {}
+    for entry, (fn, stats) in runs.items():
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"epipolar {entry} {label}: two runs on the same inputs differ")
+        err_d, share_d = compare_maps(f"epipolar {entry} depth", got[0], want[0])
+        err_s, _ = compare_maps(f"epipolar {entry} sigma", got[1], want[1])
+        age_share = (got[2] == want[2]).double().mean().item()
+        if age_share < MAP_SHARE:
+            raise AssertionError(f"epipolar {entry} age: only {age_share:.4f} of pixels equal")
+        if got[2].dtype != torch.int32:
+            raise AssertionError(f"epipolar {entry}: age is {got[2].dtype}")
+        for k, (a, b) in enumerate(zip(got[3].tolist(), stats)):
+            if abs(a - b) > max(2, STATS_TOL * b):
+                raise AssertionError(f"epipolar {entry} {STAT_NAMES[k]}: {a} vs {b}")
+        identical = all(torch.equal(a, b) for a, b in zip(got[:3], want[:3])) \
+            and got[3].tolist() == stats
+        out[entry] = dict(max_abs_err=max(err_d, err_s), bit_identical=identical,
+                          stats=got[3].tolist(), plain_stats=stats, depth_share=share_d,
+                          age_share=age_share)
+        phase("kernels", f"epipolar {entry} entry {label}: counts {got[3].tolist()} vs plain "
+                         f"{stats}, depth share {share_d:.5f}, max err {max(err_d, err_s):.3g}, "
+                         f"ages equal {age_share:.5f}, repeat bitwise, bit-identical to the "
+                         f"plain version: {identical}")
+    if not timed_too:
+        return out["fields"], out["fused"]
+
+    base_ok = fields[epipolar.F_BASE_OK] > 0.5
+    slots = torch.unique(fields[epipolar.F_SLOT][base_ok]).numel()
+    samples = int(epipolar.marched_samples(fields, cfg))
+    shape = depth.shape
+    plain_fields = lambda: epipolar.epipolar_update_plain(fields, *ring, cfg)
+    plain_fused = lambda: epipolar.epipolar_update_plain(mapper.epipolar_fields(*args)[0],
+                                                         *ring, cfg)
+    by_fields = lambda: mapper.depth_update_by_fields(*args)
+    f, u = out["fields"], out["fused"]
+    f.update(ms=timed(runs["fields"][0]), plain_ms=timed(plain_fields))
+    f["device_launches"], f["device_us"] = device_profile(runs["fields"][0], 20, True)
+    # The fused entry alone (the kernel's row), the whole depth_update around
+    # it (pose table included), and the route it replaces: fields + fields entry.
+    u.update(ms=timed(fused_entry), plain_ms=timed(plain_fused),
+             depth_update_ms=timed(lambda: mapper.depth_update(*args)),
+             by_fields_ms=timed(by_fields))
+    u["device_launches"], u["device_us"] = device_profile(fused_entry, 20, True)
+    u["depth_update_device_ops"], u["depth_update_device_us"] = device_profile(
+        lambda: mapper.depth_update(*args), 10, True)
+    u["by_fields_device_ops"], u["by_fields_device_us"] = device_profile(by_fields, 10, True)
+    for entry in (f, u):
+        entry.update(slots_in_use=slots, marched_samples=samples,
+                     observing_pixels=int(base_ok.sum()))
+    with_bound(f, *epipolar.work(shape, slots, samples))
+    with_bound(u, *epipolar.work_fused(shape, slots, samples, hist.capacity))
+    phase("kernels", f"epipolar {label}: {slots} born slots in use, {int(base_ok.sum())} "
+                     f"observing pixels, {samples} samples marched; fields entry {f['ms']:.4f} "
+                     f"ms (plain {f['plain_ms']:.4f}), device {f['device_us']:.2f} us in "
+                     f"{f['device_launches']:g} ops, bound {f['bound_us']:.3f} us; fused entry "
+                     f"{u['ms']:.4f} ms, device {u['device_us']:.2f} us in "
+                     f"{u['device_launches']:g} ops, bound {u['bound_us']:.3f} us; depth_update "
+                     f"{u['depth_update_ms']:.4f} ms, {u['depth_update_device_ops']:g} device ops, "
+                     f"{u['depth_update_device_us']:.2f} us; fields + fields entry "
+                     f"{u['by_fields_ms']:.4f} ms, {u['by_fields_device_ops']:g} device ops, "
+                     f"{u['by_fields_device_us']:.2f} us; fields + plain {u['plain_ms']:.4f} ms")
+    return f, u
+
+
+def check_regularize_cull(label, ref, depth, sigma, age, cfg):
+    """The regularize-and-cull launch against its plain version
+    (``regularize_plain`` then the pair's culls), ``torch.equal`` on every
+    level of both pyramids, and ``with_regularized_depth`` against the three
+    launches it replaces (pair build, ``csrc/regularize.cu``, one-plane
+    build).  Returns its result dict."""
+    from dvo_tpu_torch.models import frame
+    from dvo_tpu_torch.ops.cuda import framebuild
+
+    levels = ref.levels
+    got = framebuild.regularize_cull_pyramid(depth, sigma, levels, cfg)
+    again = framebuild.regularize_cull_pyramid(depth, sigma, levels, cfg)
+    want = framebuild.regularize_cull_pyramid_plain(depth, sigma, levels, cfg)
+    three = frame.with_regularized_depth_plain(ref, depth, sigma, age, cfg)
+    torch.cuda.synchronize()
+    if len(got) != levels or len(want) != levels:
+        raise AssertionError(f"regularize_cull {label}: {len(got)} levels")
+    for i, ((gd, gs), (ad, as_), (wd, ws), scene) in enumerate(zip(got, again, want,
+                                                                  three.scenes)):
+        for what, a, b in (("depth vs plain", gd, wd), ("sigma vs plain", gs, ws),
+                           ("depth repeat", gd, ad), ("sigma repeat", gs, as_),
+                           ("depth vs three launches", gd, scene.depth),
+                           ("sigma vs three launches", gs, scene.sigma)):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"regularize_cull {label}: level {i} {what} differs")
+    one = lambda: frame.with_regularized_depth(ref, depth, sigma, age, cfg)
+    split = lambda: frame.with_regularized_depth_plain(ref, depth, sigma, age, cfg)
+    plain = lambda: framebuild.regularize_cull_pyramid_plain(depth, sigma, levels, cfg)
+    out = dict(max_abs_err=0.0, bit_identical=True, ms=timed(one), three_launches_ms=timed(split),
+               plain_ms=timed(plain))
+    out["device_launches"], out["device_us"] = device_profile(one, 20, True)
+    out["three_launches_device_ops"], out["three_launches_device_us"] = device_profile(
+        split, 20, True)
+    with_bound(out, *framebuild.work_regularize_cull(depth.shape, levels))
+    phase("kernels", f"regularize_cull {label}: {levels} levels of depth and sigma equal to "
+                     f"the plain version and to the three launches, repeat bitwise; "
+                     f"{out['ms']:.4f} ms, device {out['device_us']:.2f} us in "
+                     f"{out['device_launches']:g} launch; the three launches "
+                     f"{out['three_launches_ms']:.4f} ms, {out['three_launches_device_us']:.2f} us "
+                     f"in {out['three_launches_device_ops']:g}; plain {out['plain_ms']:.4f} ms; "
+                     f"bound {out['bound_us']:.3f} us")
+    return out
+
+
 def kernel_phase(state, grays, masks, K, cfg, tag=""):
     """Each kernel vs its plain version at a monocular path's shapes, on the
     state a real run left behind (full ring) and the next frame: GN at every
-    level, epipolar, regularize and the four frame builds the path runs
-    (tracking frame, a frame with depth, the depth/sigma pair and one
-    plane).  ``tag`` prefixes the labels.  Returns (one entry per kernel,
+    level, both epipolar entries, regularize, the regularize-and-cull launch
+    and the four frame builds (tracking frame, a frame with depth, the
+    depth/sigma pair and one plane).  ``tag`` prefixes the labels.  Returns (one entry per kernel,
     with its times by shape; the frame builds' (error, ms, plain ms) by
     label)."""
     from dvo_tpu_torch import lie
     from dvo_tpu_torch.models.frame import build_tracking_frame, normalize_gray, with_pose
-    from dvo_tpu_torch.models.mapper import epipolar_fields
     from dvo_tpu_torch.models.tracker import level_planes, track
-    from dvo_tpu_torch.ops.cuda import epipolar, framebuild, gn, gn_level, regularize
-    from dvo_tpu_torch.ops.depth_filter import draw_reset_depth
+    from dvo_tpu_torch.ops.cuda import framebuild, gn, gn_level, regularize
 
-    dev = grays.device
     frame = build_tracking_frame(grays, masks, K, cfg.pyramid.levels, 0, state.frame_count)
     tr = track(frame, state.ref, cfg.tracker)
     frame = with_pose(frame, tr.xi, state.ref.xi)
@@ -516,43 +701,22 @@ def kernel_phase(state, grays, masks, K, cfg, tag=""):
              stepwise_device_us=step_us, stepwise_device_launches=step_ops,
              times_by_shape=lv_times, work_by_shape=lv_work), *lv_work[tag + shape]))
 
-    # --- epipolar against the full ring ---
+    # --- epipolar against the full ring: the fields entry and the fused one ---
     hist = state.history
     if hist.count != hist.capacity:
         raise AssertionError(f"ring holds {hist.count} of {hist.capacity} keyframes")
-    reset = draw_reset_depth(base.shape, cfg.mapper.depth_filter,
-                             torch.Generator(device=dev).manual_seed(SEED), dev)
-    fields, _ = epipolar_fields(frame.base, frame.xi, frame.relative_xi, base.depth,
-                                base.sigma, state.ref.age, hist, reset, cfg.mapper)
-    ring = (hist.gray, hist.gx, hist.gy, hist.gmask)
-    got = epipolar.epipolar_update(fields, *ring, cfg.mapper)
-    want = epipolar.epipolar_update_plain(fields, *ring, cfg.mapper)
-    torch.cuda.synchronize()
-    err_d, share_d = compare_maps("epipolar depth", got[0], want[0])
-    err_s, _ = compare_maps("epipolar sigma", got[1], want[1])
-    age_share = (got[2] == want[2]).double().mean().item()
-    if age_share < MAP_SHARE:
-        raise AssertionError(f"epipolar age: only {age_share:.4f} of pixels equal")
-    for k, (a, b) in enumerate(zip(got[3].tolist(), want[3].tolist())):
-        if abs(a - b) > max(2, STATS_TOL * b):
-            raise AssertionError(f"epipolar stat {k}: {a} vs {b}")
-    ms = timed(lambda: epipolar.epipolar_update(fields, *ring, cfg.mapper))
-    plain_ms = timed(lambda: epipolar.epipolar_update_plain(fields, *ring, cfg.mapper))
-    slots = torch.unique(fields[epipolar.F_SLOT][fields[epipolar.F_BASE_OK] > 0.5]).numel()
-    samples = int(epipolar.marched_samples(fields, cfg.mapper))
-    ops, us = device_profile(lambda: epipolar.epipolar_update(fields, *ring, cfg.mapper), 20,
-                             True)
-    phase("kernels", f"{tag}epipolar {shape}: stats {got[3].tolist()} vs plain {want[3].tolist()}, "
-                     f"{slots} born slots in use, {samples} samples marched, depth share "
-                     f"{share_d:.5f}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device "
-                     f"{us:.2f} us in {ops:g} launches")
-    results.append(with_bound(
-        dict(name="epipolar", route="cuda", source="dvo_tpu_torch/csrc/epipolar.cu",
-             replaces="dvo_tpu/ops/pallas/epipolar.py:64", max_abs_err=max(err_d, err_s),
-             ms=ms, plain_ms=plain_ms, device_us=us, device_launches=ops,
-             slots_in_use=slots, marched_samples=samples,
-             times_by_shape={tag + shape: (ms, plain_ms)}),
-        *epipolar.work(base.shape, slots, samples)))
+    epi_args, _ = depth_update_args(state, grays, masks, K, cfg)
+    if not torch.equal(epi_args[2], frame.relative_xi):
+        raise AssertionError("the depth update's frame is not the tracked one")
+    by_fields, fused = check_epipolar(f"{tag}{shape}", epi_args)
+    for name, entry, what in (("epipolar", by_fields, "fields entry"),
+                              ("epipolar_fused", fused, "fused entry")):
+        results.append(dict(name=name, route="cuda", counter="epipolar", entry=what,
+                            source="dvo_tpu_torch/csrc/epipolar.cu",
+                            replaces="dvo_tpu/ops/pallas/epipolar.py:64",
+                            no_library_call="a data-dependent march along each pixel's "
+                                            "epipolar segment with a depth filter", **entry,
+                            times_by_shape={tag + shape: (entry["ms"], entry["plain_ms"])}))
 
     # --- regularize ---
     got = regularize.regularize(base.depth, base.sigma, cfg.mapper)
@@ -572,6 +736,17 @@ def kernel_phase(state, grays, masks, K, cfg, tag=""):
              plain_ms=plain_ms, device_us=us, device_launches=ops,
              times_by_shape={tag + shape: (ms, plain_ms)}),
         *regularize.work(base.shape)))
+
+    # --- regularize and cull in one launch (the mapper's reference rebuild) ---
+    rc = check_regularize_cull(f"{tag}{shape}x{cfg.pyramid.levels}", state.ref, base.depth,
+                               base.sigma, state.ref.age, cfg.mapper)
+    results.append(dict(name="regularize_cull", route="cuda",
+                        source="dvo_tpu_torch/csrc/framebuild.cu",
+                        replaces="dvo_tpu/ops/pallas/framebuild.py:103 and "
+                                 "dvo_tpu/ops/pallas/regularize.py:29",
+                        no_library_call="a gated 4-neighbour fusion with a scatter to every "
+                                        "pyramid level", **rc,
+                        times_by_shape={tag + shape: (rc["ms"], rc["plain_ms"])}))
 
     # --- the frame builds: tracking frame, a keyframe with depth (the first
     # frame's), the depth/sigma pair (promotion) and one plane (regularize) ---
@@ -881,8 +1056,12 @@ def cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_p
             require_launched(name, got["launches"],
                              MONO_KERNELS if "mono" in name else RGBD_KERNELS)
             if "mono" not in name and (got["launches"]["epipolar"]
-                                       or got["launches"]["regularize"]):
+                                       or got["launches"]["regularize"]
+                                       or got["launches"]["regularize_cull"]):
                 raise AssertionError(f"{name}: the mapper's kernels ran: {got['launches']}")
+            if "mono" in name and got["launches"]["regularize"]:
+                raise AssertionError(f"{name}: csrc/regularize.cu ran on the fused route: "
+                                     f"{got['launches']}")
             by_path[name] = got["launches"]
             n = len(ts) - 1
             wall, decode = got["wall_s"], got["decode_s"]
@@ -993,14 +1172,17 @@ def run_path(name, fn):
     return out, time.perf_counter() - t0, dict(_build.LAUNCHES)
 
 
-MONO_KERNELS = ("gn_level", "epipolar", "regularize", "framebuild")
+MONO_KERNELS = ("gn_level", "epipolar", "regularize_cull", "framebuild")
+MONO_FIELDS_KERNELS = ("gn_level", "epipolar", "regularize", "framebuild")
 RGBD_KERNELS = ("gn_level", "framebuild")
 
 
-def require_launched(path, launches, names, levels_per_frame=None):
+def require_launched(path, launches, names, levels_per_frame=None, mono=None):
     """Every kernel in ``names`` launched on the path; with
     ``levels_per_frame`` = (levels, frames), the level kernel exactly once
-    per level and frame, and the stepwise kernel not at all."""
+    per level and frame, and the stepwise kernel not at all; with ``mono`` =
+    (route, frames, keyframes, first-frame builds), the mapper's launches of
+    a monocular run on that route ("fused" or "fields"), exactly."""
     for name in names:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the {path} path")
@@ -1009,6 +1191,66 @@ def require_launched(path, launches, names, levels_per_frame=None):
         if launches["gn_level"] != levels * frames or launches["gn"] != 0:
             raise AssertionError(f"{path}: expected {levels} gn_level launches per frame over "
                                  f"{frames} frames and no gn launch: {launches}")
+    if mono is not None:
+        route, frames, keyframes, inits = mono
+        want = dict(epipolar=frames - keyframes)
+        if route == "fused":    # the tracking frame; regularize and cull in one launch
+            want.update(framebuild=frames + inits, regularize=0, regularize_cull=frames)
+        else:                   # + the pair build and the one-plane build; the regulariser
+            want.update(framebuild=3 * frames + inits, regularize=frames, regularize_cull=0)
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{path}: the mapper's launches on the {route} route over "
+                                 f"{frames} frames with {keyframes} promotions: {got}, "
+                                 f"expected {want}")
+
+
+@contextlib.contextmanager
+def fields_route():
+    """The monocular mapper on its fields route: the depth update prepares
+    the 24 field planes in PyTorch ops and launches the kernel's fields
+    entry, and the reference is rebuilt by three launches (the pair build,
+    ``csrc/regularize.cu``, the one-plane build) in place of one."""
+    from dvo_tpu_torch.models import frame, mapper, odometry
+
+    with patched(odometry, "depth_update", mapper.depth_update_by_fields), \
+            patched(odometry, "with_regularized_depth", frame.with_regularized_depth_plain):
+        yield
+
+
+def paired_routes(name, fn, frames, first):
+    """After ``first`` (the path's run on the fused route: output, seconds,
+    launches), the same path on the fields route twice and on the fused route
+    again: A, B, B, A in one process.  ``fn()`` returns a list of chunk
+    results.  Returns (ms/frame of the four runs by route, the fields
+    route's launches, (max |dT| of a fields run against the fused run over
+    all frames, over the first CPU_FRAMES), whether the keyframe decisions
+    were equal)."""
+    poses_of = lambda o: torch.cat([r.T_world for r in o])
+    kf_of = lambda o: torch.cat([r.is_keyframe for r in o])
+    ms = {"fused": [1e3 * first[1] / frames], "fields": []}
+    T_fused, kf_fused = poses_of(first[0]), kf_of(first[0])
+    dT, dT_first, same_kf = 0.0, 0.0, True
+    for route in ("fields", "fields", "fused"):
+        with fields_route() if route == "fields" else contextlib.nullcontext():
+            out, elapsed, launches = run_path(f"{name}_{route}", fn)
+        ms[route].append(1e3 * elapsed / frames)
+        kf = kf_of(out)
+        require_launched(f"{name}_{route}", launches,
+                         MONO_FIELDS_KERNELS if route == "fields" else MONO_KERNELS,
+                         mono=(route, frames, int(kf.sum()), 1))
+        diff = (poses_of(out) - T_fused).abs()
+        if route == "fields":
+            fields_launches = launches
+            dT = max(dT, diff.max().item())
+            dT_first = max(dT_first, diff[:CPU_FRAMES].max().item())
+            same_kf = same_kf and bool((kf == kf_fused).all())
+        elif not diff[:CPU_FRAMES].max() <= POSE_TOL:
+            raise AssertionError(f"{name}: the fused route's second run gave other poses")
+    if not dT_first <= POSE_TOL:
+        raise AssertionError(f"{name}: the fields route's first {CPU_FRAMES} poses differ from "
+                             f"the fused route's by {dT_first:.3g}")
+    return ms, fields_launches, (dT, dT_first), same_kf
 
 
 def paired_loops(name, fn, frames, poses_of, first):
@@ -1041,20 +1283,21 @@ def paired_loops(name, fn, frames, poses_of, first):
     return ms, step_launches, (dT, dT_first)
 
 
-def device_ops(path_loops):
+def device_ops(path_loops, loops=("level", "stepwise")):
     """{loop: (device ops per frame, idle share)} for a phase's line."""
     return {d: (round(path_loops[d]["device_ops_per_frame"]),
-                round(path_loops[d]["idle_share"], 3)) for d in ("level", "stepwise")}
+                round(path_loops[d]["idle_share"], 3)) for d in loops}
 
 
-def profiled_loops(fn, frames, ms_per_frame):
+def profiled_loops(fn, frames, ms_per_frame, other=("stepwise", stepwise_tracker)):
     """Device ops and device-busy us per frame of ``fn()`` (``frames``
-    frames) under ``torch.profiler``, with the level kernel and with the
-    stepwise loop; the idle share is read against the mean unprofiled
-    ms/frame of the same loop (``ms_per_frame``, from this process)."""
+    frames) under ``torch.profiler``, as the code stands (the level kernel,
+    the fused route) and inside the context ``other`` = (name, context
+    manager); the idle share is read against the mean unprofiled ms/frame of
+    the same loop (``ms_per_frame``, from this process)."""
     out = {}
-    for loop in ("level", "stepwise"):
-        with stepwise_tracker() if loop == "stepwise" else contextlib.nullcontext():
+    for loop in ms_per_frame:
+        with other[1]() if loop == other[0] else contextlib.nullcontext():
             ops, us = device_profile(fn)
         wall_us = 1e3 * statistics.mean(ms_per_frame[loop])
         out[loop] = dict(device_ops_per_frame=ops / frames,
@@ -1073,11 +1316,13 @@ def main() -> None:
         monocular_init,
         monocular_init_with_depth,
         monocular_run,
+        monocular_step,
         raw_depth,
         rgbd_init,
         rgbd_run_raw,
     )
     from dvo_tpu_torch.ops.cuda import _build
+    from dvo_tpu_torch.tools import epipolar_sweep
 
     # 1. device
     dev = torch.device("cuda", 0)
@@ -1102,8 +1347,7 @@ def main() -> None:
     resets = torch.clamp(0.5 + 1.5 * torch.rand((N_FRAMES, h0, w0), generator=gen), max=4.0)
 
     def init(device):
-        return monocular_init(grays[0].to(device), masks[0].to(device), K.to(device), cfg,
-                              noise=noise.to(device))
+        return monocular_init(grays[0], masks[0], K, cfg, device=device, noise=noise)
 
     # 3. kernels, on the state a warm-up run leaves (ring filled by promotions)
     warm, _ = monocular_run(init(dev), grays[1:1 + CHUNK], masks[1:1 + CHUNK], K, cfg,
@@ -1111,6 +1355,28 @@ def main() -> None:
     nxt = 1 + CHUNK
     cfg0, K0, (gray_next, mask_next) = _cull_chunk(cfg, K, grays[nxt], masks[nxt])
     kernels, fb = kernel_phase(warm, gray_next, mask_next, K0, cfg0)
+    # ... the depth update once more early in a run: the ring not full, and a
+    # block of pixels given an age past the live keyframes (aged out) ...
+    early, _ = monocular_run(init(dev), grays[1:1 + EARLY_FRAMES], masks[1:1 + EARLY_FRAMES], K,
+                             cfg, resets[:EARLY_FRAMES].to(dev))
+    if not early.history.count < early.history.capacity:
+        raise AssertionError(f"the early state's ring holds {early.history.count} keyframes")
+    early_args, _ = depth_update_args(early, *_cull_chunk(cfg, K, grays[1 + EARLY_FRAMES],
+                                                          masks[1 + EARLY_FRAMES])[2], K0, cfg0)
+    old = early_args[5].clone()
+    (x0, x1), (y0, y1) = cfg.mapper.crop_x, cfg.mapper.crop_y
+    old[y0 + 4:y0 + 20, x0 + 8:x1 - 8] = early.history.count + 1
+    early_args = early_args[:5] + (old,) + early_args[6:]
+    _, early_fused = check_epipolar(
+        f"early ({early.history.count} of {early.history.capacity} keyframes)", early_args,
+        timed_too=False)
+    if early_fused["stats"][3] != 16 * (x1 - x0 - 16) or early_fused["stats"][0] == 0:
+        raise AssertionError(f"early state: counts {early_fused['stats']}")
+    # ... and the same kernel built with 4, 8, 16 and 32 lanes a pixel.
+    lanes_rows = epipolar_sweep.sweep(
+        depth_update_args(warm, gray_next, mask_next, K0, cfg0)[0],
+        epipolar_sweep.VARIANTS[:len(epipolar_sweep.LANES)],
+        say=lambda line: phase("kernels", "epipolar " + line))
     cfg_r = DVOConfig.rgbd()
     r_grays, r_masks, r_counts, r_K = render_rgbd(dev)
     entries = {k["name"]: k for k in kernels}
@@ -1124,6 +1390,11 @@ def main() -> None:
         for key in ("times_by_shape", "work_by_shape"):
             if key in more:
                 entry[key].update(more[key])
+        if "bit_identical" in more:
+            entry["bit_identical"] = entry["bit_identical"] and more["bit_identical"]
+            entry["kinect_mono"] = {k: v for k, v in more.items() if k not in (
+                "name", "route", "source", "replaces", "counter", "entry", "no_library_call",
+                "times_by_shape")}
     fb.update(kin_fb)
 
     # 4. main path
@@ -1147,21 +1418,66 @@ def main() -> None:
         raise AssertionError("no keyframe promotion")
     if not bool((accepted[~kf] > 0).any()):
         raise AssertionError("no depth update accepted an observation")
-    require_launched("mono", launches, MONO_KERNELS, (cfg.pyramid.levels, N_FRAMES))
+    require_launched("mono", launches, MONO_KERNELS, (cfg.pyramid.levels, N_FRAMES),
+                     mono=("fused", N_FRAMES, int(kf.sum()), 1))
     ms_frame = 1e3 * elapsed / N_FRAMES
     by_path = {"mono": launches}
     phase("main", f"{N_FRAMES} frames 640x480 -> 160x120, {int(kf.sum())} promotions, "
                   f"accepted per update {accepted[~kf].tolist()}, launches {launches}, "
                   f"{ms_frame:.3f} ms/frame = {1e3 / ms_frame:.2f} fps on {card_line}")
+    # The mapper's fused route (as above) against its fields route, in turns.
+    profile_sl = slice(nxt, nxt + PROFILE_FRAMES)
+    profile_run = lambda: monocular_run(warm, grays[profile_sl], masks[profile_sl], K, cfg,
+                                        resets[:PROFILE_FRAMES].to(dev))
+    ms_routes, by_path["mono_fields"], dT_routes, same_kf = paired_routes(
+        "mono", mono_main, N_FRAMES, first)
+    routes = dict(ms_per_frame=ms_routes, fields_vs_fused_max_dT=dT_routes[0],
+                  fields_vs_fused_first_frames_max_dT=dT_routes[1], keyframes_equal=same_kf,
+                  **profiled_loops(profile_run, PROFILE_FRAMES, ms_routes,
+                                   ("fields", fields_route)))
+    # One frame that is no keyframe, profiled alone on both routes.
+    # (the first such frame after the warm-up: promotions come every few frames)
+    before = warm
+    for i in range(nxt, nxt + PROFILE_FRAMES):
+        gray_i, mask_i = _cull_chunk(cfg, K, grays[i], masks[i])[2]
+        step_args = (before, gray_i, mask_i, K0, cfg0, resets[i - 1].to(dev))
+        before, res = monocular_step(*step_args)
+        if not bool(res.is_keyframe):
+            break
+    else:
+        raise AssertionError(f"{PROFILE_FRAMES} keyframes in a row after the warm-up")
+    routes["non_keyframe_step_device_ops"] = {}
+    for route in ("fused", "fields"):
+        with fields_route() if route == "fields" else contextlib.nullcontext():
+            routes["non_keyframe_step_device_ops"][route] = device_profile(
+                lambda: monocular_step(*step_args))[0]
+    # What the frame's Lie algebra costs in device ops: each is a chain of
+    # small PyTorch ops on (6,), (3, 3) and (4, 4) tensors.
+    from dvo_tpu_torch import lie
+    from dvo_tpu_torch.models.mapper import pose_table
+    xi_a, xi_b = step_args[0].ref.xi, res.relative_xi
+    routes["lie_device_ops"] = {
+        "compose": device_profile(lambda: lie.compose(xi_a, xi_b), 5, True)[0],
+        "se3_exp": device_profile(lambda: lie.se3_exp(xi_a), 5, True)[0],
+        "pose_table": device_profile(lambda: pose_table(K0, xi_a, xi_b, warm.history), 5,
+                                     True)[0],
+    }
+    phase("main", f"device ops of one call: {routes['lie_device_ops']} (a mono frame calls "
+                  f"compose twice, se3_exp once and, when it is no keyframe, pose_table)")
+    phase("main", f"mapper routes, fused vs fields (A, B, B, A): ms/frame {ms_routes}, fields "
+                  f"poses within {dT_routes[1]:.3g} of the fused route's over the first "
+                  f"{CPU_FRAMES} frames (tol {POSE_TOL}) and {dT_routes[0]:.3g} over all "
+                  f"{N_FRAMES}, keyframe decisions equal: {same_kf}; device ops per frame and "
+                  f"idle share over {PROFILE_FRAMES} frames after the warm-up: "
+                  f"{device_ops(routes, ('fused', 'fields'))}; device ops of one frame that is "
+                  f"no keyframe: {routes['non_keyframe_step_device_ops']}; fields launches "
+                  f"{by_path['mono_fields']} on {card_line}")
     gn_loops = {}
     ms_pair, by_path["mono_stepwise"], dT_step = paired_loops(
         "mono", mono_main, N_FRAMES, lambda o: torch.cat([r.T_world for r in o]), first)
-    profile_sl = slice(nxt, nxt + PROFILE_FRAMES)
     gn_loops["mono"] = dict(ms_per_frame=ms_pair, stepwise_vs_level_max_dT=dT_step[0],
                            stepwise_vs_level_first_frames_max_dT=dT_step[1],
-                           **profiled_loops(lambda: monocular_run(
-                               warm, grays[profile_sl], masks[profile_sl], K, cfg,
-                               resets[:PROFILE_FRAMES].to(dev)), PROFILE_FRAMES, ms_pair))
+                           **profiled_loops(profile_run, PROFILE_FRAMES, ms_pair))
     phase("main", f"level kernel vs stepwise loop (A, B, B, A): ms/frame {ms_pair}, "
                   f"stepwise poses within {dT_step[1]:.3g} of the level kernel's over the first "
                   f"{CPU_FRAMES} frames (tol {POSE_TOL}) and {dT_step[0]:.3g} over all {N_FRAMES} "
@@ -1200,7 +1516,7 @@ def main() -> None:
     step = torch.tensor(RGBD_STEP, device=dev)
     step_err = torch.linalg.vector_norm(res_r.relative_xi - step, dim=1)
     require_launched("rgbd", launches, RGBD_KERNELS, (cfg_r.pyramid.levels, RGBD_FRAMES))
-    if launches["epipolar"] or launches["regularize"]:
+    if launches["epipolar"] or launches["regularize"] or launches["regularize_cull"]:
         raise AssertionError(f"rgbd: the mapper's kernels ran: {launches}")
     ms_rgbd = 1e3 * elapsed / RGBD_FRAMES
     phase("rgbd", f"{RGBD_FRAMES} frames {RW}x{RH} -> {RW >> 1}x{RH >> 1} x {cfg_r.pyramid.levels} "
@@ -1246,7 +1562,8 @@ def main() -> None:
     if not bool(torch.isfinite(res_d.T_world).all()):
         raise AssertionError("monodepth: non-finite pose")
     require_launched("monodepth", launches, MONO_KERNELS,
-                     (cfg.pyramid.levels, MONO_DEPTH_FRAMES))
+                     (cfg.pyramid.levels, MONO_DEPTH_FRAMES),
+                     mono=("fused", MONO_DEPTH_FRAMES, int(res_d.is_keyframe.sum()), 1))
     phase("monodepth", f"{MONO_DEPTH_FRAMES} frames 640x480, "
                        f"{int(res_d.is_keyframe.sum())} promotions, launches {launches}, "
                        f"{1e3 * elapsed / MONO_DEPTH_FRAMES:.3f} ms/frame")
@@ -1280,7 +1597,7 @@ def main() -> None:
              ms_by_shape={k: v[1] for k, v in fb.items()},
              plain_ms_by_shape={k: v[2] for k, v in fb.items()}), *fb_work))
     frames_by_path = {"mono": N_FRAMES, "rgbd": RGBD_FRAMES, "mono_stepwise": N_FRAMES,
-                      "rgbd_stepwise": RGBD_FRAMES}
+                      "rgbd_stepwise": RGBD_FRAMES, "mono_fields": N_FRAMES}
     for k in kernels:
         if "times_by_shape" in k:
             times = k.pop("times_by_shape")
@@ -1291,11 +1608,20 @@ def main() -> None:
         if "work_by_shape" in k:
             k["bound_us_by_shape"] = {s: _build.bound_us(*w)[0]
                                       for s, w in k["work_by_shape"].items()}
-        k["launches"] = sum(p[k["name"]] for p in by_path.values())
-        k["launches_by_path"] = {path: p[k["name"]] for path, p in by_path.items()}
-        k["launches_per_frame"] = {path: by_path[path][k["name"]] / n
-                                   for path, n in frames_by_path.items()}
-    print(json.dumps({"kernels": kernels, "gn_loops": gn_loops,
+        # Both epipolar entries launch one kernel and share its count: the
+        # fields entry's launches are those of the fields route, the fused
+        # entry's those of every other path.
+        counter = k.get("counter", k["name"])
+        on_path = {"epipolar": lambda path: path == "mono_fields",
+                   "epipolar_fused": lambda path: path != "mono_fields"}.get(k["name"],
+                                                                             lambda path: True)
+        k["launches_by_path"] = {path: p[counter] for path, p in by_path.items()
+                                 if on_path(path)}
+        k["launches"] = sum(k["launches_by_path"].values())
+        k["launches_per_frame"] = {path: by_path[path][counter] / n
+                                   for path, n in frames_by_path.items() if on_path(path)}
+    print(json.dumps({"kernels": kernels, "gn_loops": gn_loops, "mapper_routes": routes,
+                      "epipolar_lanes": lanes_rows,
                       "ms_per_frame": ms_frame, "rgbd_ms_per_frame": ms_rgbd,
                       "syncs_per_frame": {"mono": syncs_mono / n, "rgbd": syncs_rgbd / n},
                       "cli": cli, "card": card_line}))

@@ -28,9 +28,20 @@
 //
 // Layout: each plane kind is one contiguous buffer holding all levels back
 // to back, coarsest first (value plane k at vals + k * total); the wrapper
-// returns per-level views of it.
+// returns per-level views of it (framebuild_cull.cuh).
+//
+// A second kernel, regularize_cull_kernel, is the cull as the epilogue of
+// the launch that produces the map: the monocular mapper regularises the
+// keyframe's base depth and then re-derives every level of depth and sigma
+// from the base, which took three launches (the depth/sigma pair, the
+// regulariser, one plane) whose first wrote levels the third overwrote
+// unread.  Here each thread computes its base pixel's regularised depth
+// (regularize_pixel.cuh, the regulariser's own arithmetic) and scatters it,
+// and the unchanged sigma, to every level the pixel belongs to: one launch,
+// bit-identical to the three.
 
-#include "dvo_kernels.h"
+#include "framebuild_cull.cuh"
+#include "regularize_pixel.cuh"
 
 namespace {
 
@@ -48,19 +59,8 @@ framebuild_kernel(Planes in, const uint8_t* __restrict__ mask, float* __restrict
                   int levels, int n_val, int total) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= total) return;
-  // Level of output pixel p, coarsest (t = levels - 1) first.
-  int t = levels - 1;
-  int off = 0;
-  int ht = 0, wt = 0;
-  for (; t >= 0; --t) {
-    ht = (h0 + (1 << t) - 1) >> t;
-    wt = (w0 + (1 << t) - 1) >> t;
-    if (p < off + ht * wt) break;
-    off += ht * wt;
-  }
-  const int q = p - off;
-  const int y = q / wt;
-  const int x = q - y * wt;
+  const dvo::LevelPixel o = dvo::locate(p, h0, w0, levels);
+  const int t = o.t, ht = o.ht, wt = o.wt, y = o.y, x = o.x;
   const int row = (y << t) * w0;
   const int base = row + (x << t);
   for (int k = 0; k < n_val; ++k) vals[k * total + p] = in.v[k][base];
@@ -89,6 +89,19 @@ framebuild_kernel(Planes in, const uint8_t* __restrict__ mask, float* __restrict
   gmask_out[p] = ok;
 }
 
+__global__ void __launch_bounds__(kThreads)
+regularize_cull_kernel(const float* __restrict__ depth, const float* __restrict__ sigma,
+                       float* __restrict__ vals, int h0, int w0, int levels, int total,
+                       float gain_ramp, float max_depth) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= h0 * w0) return;
+  const int y = p / w0;
+  const int x = p - y * w0;
+  const float d = dvo::regularize_pixel(depth, sigma, y, x, h0, w0, gain_ramp, max_depth);
+  dvo::cull_store(vals, d, y, x, h0, w0, levels);
+  dvo::cull_store(vals + total, sigma[p], y, x, h0, w0, levels);
+}
+
 }  // namespace
 
 // v0..v2: base-level (h0, w0) float planes (unused ones may be null);
@@ -104,5 +117,17 @@ extern "C" int dvo_framebuild(const float* v0, const float* v1, const float* v2,
   const int blocks = (total + kThreads - 1) / kThreads;
   framebuild_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       in, mask, vals, mask_out, gx, gy, gmask, h0, w0, levels, n_val, total);
+  return (int)cudaGetLastError();
+}
+
+// depth, sigma: base-level (h0, w0) float planes.  vals: 2 * total floats,
+// the regularised depth's pyramid then sigma's, each coarsest first.
+extern "C" int dvo_regularize_cull(const float* depth, const float* sigma, float* vals, int h0,
+                                   int w0, int levels, int total, float gain_ramp,
+                                   float max_depth, void* stream) {
+  if (levels < 1 || levels > 16) return (int)cudaErrorInvalidValue;
+  const int blocks = (h0 * w0 + kThreads - 1) / kThreads;
+  regularize_cull_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      depth, sigma, vals, h0, w0, levels, total, gain_ramp, max_depth);
   return (int)cudaGetLastError();
 }

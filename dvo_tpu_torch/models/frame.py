@@ -15,12 +15,14 @@ from typing import Optional, Tuple
 import torch
 
 from dvo_tpu_torch import lie
-from dvo_tpu_torch.config import InitConfig, resolve_device
+from dvo_tpu_torch.config import InitConfig, MapperConfig, resolve_device
 from dvo_tpu_torch.ops.cuda.framebuild import (
     build_pyramid_planes,
     cull_pyramid_one,
     cull_pyramid_pair,
+    regularize_cull_pyramid,
 )
+from dvo_tpu_torch.ops.cuda.regularize import regularize
 from dvo_tpu_torch.ops.image import cull_image, cull_intrinsic, gradients
 
 
@@ -160,6 +162,13 @@ def with_pose(frame: Frame, relative_xi: torch.Tensor, ref_xi: torch.Tensor) -> 
                                xi=lie.compose(ref_xi, relative_xi))
 
 
+def _with_pairs(frame: Frame, pairs, age) -> Frame:
+    scenes = tuple(dataclasses.replace(s, depth=d, sigma=sg)
+                   for s, (d, sg) in zip(frame.scenes, pairs))
+    return dataclasses.replace(frame, scenes=scenes,
+                               age=age if age is not None else frame.age)
+
+
 def with_depth(frame: Frame, depth, sigma=None, age=None) -> Frame:
     """Re-derive every level's depth (and optionally sigma) from a new
     base-level map by culling (frame.cpp:39-61): one
@@ -169,7 +178,33 @@ def with_depth(frame: Frame, depth, sigma=None, age=None) -> Frame:
     else:
         pairs = [(d, s.sigma) for d, s in zip(cull_pyramid_one(depth, frame.levels),
                                               frame.scenes)]
-    scenes = tuple(dataclasses.replace(s, depth=d, sigma=sg)
-                   for s, (d, sg) in zip(frame.scenes, pairs))
-    return dataclasses.replace(frame, scenes=scenes,
-                               age=age if age is not None else frame.age)
+    return _with_pairs(frame, pairs, age)
+
+
+def with_base_depth(frame: Frame, depth, sigma) -> Frame:
+    """``frame`` with ``depth``/``sigma`` on its base level only: what the
+    keyframe ring reads of a new keyframe (``history.push``), with no cull."""
+    base = dataclasses.replace(frame.base, depth=depth, sigma=sigma)
+    return dataclasses.replace(frame, scenes=frame.scenes[:-1] + (base,))
+
+
+def with_regularized_depth_plain(frame: Frame, depth, sigma, age,
+                                 cfg: MapperConfig = MapperConfig()) -> Frame:
+    """``with_depth`` of the new maps, the regulariser on the base level,
+    ``with_depth`` of its output: the mapper's three steps one by one (on
+    CUDA three launches: the pair build, ``csrc/regularize.cu``, the
+    one-plane build)."""
+    frame = with_depth(frame, depth, sigma, age)
+    return with_depth(frame, regularize(frame.base.depth, frame.base.sigma, cfg))
+
+
+def with_regularized_depth(frame: Frame, depth, sigma, age,
+                           cfg: MapperConfig = MapperConfig()) -> Frame:
+    """``frame`` with the regularised ``depth`` and the unchanged ``sigma``
+    culled to every level, and ``age`` (mapper.cpp:30,139-144 after
+    frame.cpp:39-61).  CPU tensors run ``with_regularized_depth_plain``; on
+    CUDA the regulariser and both culls are one launch
+    (``regularize_cull_pyramid``), equal to the plain version bit for bit."""
+    if resolve_device(depth) == "plain":
+        return with_regularized_depth_plain(frame, depth, sigma, age, cfg)
+    return _with_pairs(frame, regularize_cull_pyramid(depth, sigma, frame.levels, cfg), age)

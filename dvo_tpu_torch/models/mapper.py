@@ -2,11 +2,15 @@
 update — ``dvo_tpu.models.mapper`` ported (reference mapper.cpp,
 implement.cpp).
 
-``depth_update`` prepares the epipolar kernel's 24 per-pixel planes in
-plain PyTorch, as ``depth_update_pallas`` prepares them in XLA, and hands
-them with the full keyframe ring to ``ops/cuda/epipolar``; ``regularize`` is
-``ops/cuda/regularize``.  Both kernels' plain versions follow the exact XLA
-twins, which are what the port is held to.
+``depth_update`` on CUDA tensors is one launch of ``csrc/epipolar.cu``'s
+fused entry, which takes the raw maps, the keyframe ring and a small pose
+table (``pose_table``: a handful of ops on (C, 6) tensors per frame) and
+computes everything per pixel in registers.  On CPU tensors it is
+``depth_update_by_fields``: ``epipolar_fields`` prepares the kernel's 24
+per-pixel planes in plain PyTorch, as ``depth_update_pallas`` prepares them
+in XLA, and ``ops/cuda/epipolar.epipolar_update`` takes them with the full
+ring.  ``regularize`` is ``ops/cuda/regularize``.  The kernels' plain
+versions follow the exact XLA twins, which are what the port is held to.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import dataclasses
 import torch
 
 from dvo_tpu_torch import lie
-from dvo_tpu_torch.config import InitConfig, MapperConfig
+from dvo_tpu_torch.config import EPSILON, InitConfig, MapperConfig, resolve_device
 from dvo_tpu_torch.models.frame import Scene
 from dvo_tpu_torch.models.history import KeyframeHistory, born_slot
 from dvo_tpu_torch.ops.cuda import epipolar
@@ -90,21 +94,71 @@ class DepthUpdateStats:
         return DepthUpdateStats(observed=z, accepted=z, rejected=z, aged_out=z)
 
 
+def pose_table(K, obj_xi_w, rel_xi, history: KeyframeHistory):
+    """The (2 + C, 16) float32 table of everything ``depth_update`` needs
+    that does not depend on the pixel: row 0 ``K`` (row-major, 9 values),
+    row 1 ``T_rel = exp(rel_xi)`` (R row-major, then t) and ``rel_xi[2]``,
+    row 2 + c, for ring slot c, ``T_es = exp(-r_xi)`` with ``r_xi =
+    compose(obj_xi_w, -history.xi[c])`` (R, then t) and ``t_tw =
+    -r_xi[:3]`` (mapper.cpp:107, implement.cpp:57-59).  All trigonometry of
+    the update is in here."""
+    c = history.capacity
+    # One exp for the three twists that need one: the object frame's pose,
+    # the ring's inverse poses and the relative pose (eager PyTorch pays per
+    # op, not per row).
+    T = lie.se3_exp(torch.cat([obj_xi_w[None], -history.xi, rel_xi[None]]))
+    T_rel = T[c + 1]
+    r_xi = lie.se3_log(T[0] @ T[1:c + 1])                    # compose(obj_xi_w, -xi): (C, 6)
+    T_es = lie.se3_exp(-r_xi)                                # (C, 4, 4)
+    table = torch.zeros((2 + c, epipolar.TABLE_ROW), dtype=torch.float32, device=K.device)
+    table[0, :9] = K.reshape(9)
+    table[1, :9] = T_rel[:3, :3].reshape(9)
+    table[1, 9:12] = T_rel[:3, 3]
+    table[1, 12] = rel_xi[2]
+    table[2:, :9] = T_es[:, :3, :3].reshape(c, 9)
+    table[2:, 9:12] = T_es[:, :3, 3]
+    table[2:, 12:15] = -r_xi[:, :3]
+    return table
+
+
+def _warp_point(K, T, x, y, d):
+    """project(K, R back_project(K, (x, y), d) + t) with every product
+    written as an explicit sum, left to right — the order
+    ``csrc/epipolar_pixel.cuh`` (``warp_point``) copies term by term, so the
+    kernel's coordinates have these bits.  ``K``: 9 values (row-major);
+    ``T``: R row-major at 0..8, t at 9..11, scalars or per-pixel planes.
+    Returns (u, v, in_front)."""
+    fx, cx, fy, cy = K[0], K[2], K[4], K[5]
+    X = d * (x - cx) / fx
+    Y = d * (y - cy) / fy
+    px = T[0] * X + T[1] * Y + T[2] * d + T[9]
+    py = T[3] * X + T[4] * Y + T[5] * d + T[10]
+    pz = T[6] * X + T[7] * Y + T[8] * d + T[11]
+    safe = torch.where(torch.abs(pz) < EPSILON, 1.0, pz)
+    return px * fx / safe + cx, py * fy / safe + cy, pz > EPSILON
+
+
 def epipolar_fields(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
                     history: KeyframeHistory, reset_depth, cfg: MapperConfig):
     """The kernel's 24 per-pixel planes (order of ``ops/cuda/epipolar``)
     and the aged-out count: steps 1-4a and the triangulation coefficients
-    of ``dvo_tpu.models.mapper.depth_update``."""
+    of ``dvo_tpu.models.mapper.depth_update``.
+
+    The plain version of what the fused entry computes in registers
+    (``csrc/epipolar_pixel.cuh``: ``prepare``): every 3x3 product is an
+    explicit sum in one fixed order rather than a batched matmul, whose
+    summation order is the library's, so that a coordinate never differs by
+    an ulp between the two and no ``rint``, gate or argmin flips."""
     h, w = ref_depth.shape
     xs, ys = pixel_grid(h, w, device=ref_depth.device)
-    xy = torch.stack([xs, ys], dim=-1)
-    K = obj.K
+    table = pose_table(obj.K, obj_xi_w, rel_xi, history)
+    K = table[0].unbind()
+    T_rel = table[1].unbind()
 
     # --- 1. ref pixel -> obj pixel, rounded half to even (mapper.cpp:94) ---
-    T_rel = lie.se3_exp(rel_xi)
-    warped, in_front = project(K, lie.transform(T_rel, back_project(K, xy, ref_depth)))
-    ox = torch.round(warped[..., 0]).to(torch.int32)
-    oy = torch.round(warped[..., 1]).to(torch.int32)
+    u, v, in_front = _warp_point(K, T_rel, xs, ys, ref_depth)
+    ox = torch.round(u).to(torch.int32)
+    oy = torch.round(v).to(torch.int32)
     in_obj = (ox >= 0) & (ox < w) & (oy >= 0) & (oy < h)
     oxc = torch.clamp(ox, 0, w - 1)
     oyc = torch.clamp(oy, 0, h - 1)
@@ -118,45 +172,41 @@ def epipolar_fields(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
     aged_out = torch.sum(crop & ~aged_ok).to(torch.int32)
     pix_ok = crop & in_obj & in_front & obj_ok & aged_ok
 
-    # --- 2. born keyframe: relative pose per ring slot, gathered per pixel ---
+    # --- 2. born keyframe: the slot's row of the table, gathered per pixel ---
     slot = born_slot(history, ref_age).long()
-    r_xi_slots = lie.compose(obj_xi_w, -history.xi)          # (C, 6)
-    T_es_slots = lie.se3_exp(-r_xi_slots)                    # (C, 4, 4)
-    r_xi_px = r_xi_slots[slot]
-    T_es = T_es_slots[slot]
+    E = table[2:][slot].unbind(dim=-1)        # 16 (H, W) planes: R, t, t_tw
 
     # --- 3. prior; 4a. epipolar segment in the born image ---
-    prior_d = ref_depth - rel_xi[2]
+    prior_d = ref_depth - T_rel[12]
     prior_s = ref_sigma
-    obj_xyf = torch.stack([oxc.to(torch.float32), oyc.to(torch.float32)], dim=-1)
+    oxf, oyf = oxc.to(torch.float32), oyc.to(torch.float32)
     dmin = torch.clamp(prior_d - prior_s, min=cfg.min_search_depth)
     dmax = prior_d + prior_s
-
-    def es_endpoint(d):
-        return project(K, lie.transform(T_es, back_project(K, obj_xyf, d)))
-
-    start, start_front = es_endpoint(dmax)
-    end, end_front = es_endpoint(dmin)
-    seg = end - start
-    length = torch.sqrt(torch.sum(seg * seg, dim=-1) + 1e-20)
+    start_x, start_y, start_front = _warp_point(K, E, oxf, oyf, dmax)
+    end_x, end_y, end_front = _warp_point(K, E, oxf, oyf, dmin)
+    seg_x = end_x - start_x
+    seg_y = end_y - start_y
+    length = torch.sqrt(seg_x * seg_x + seg_y * seg_y + 1e-20)
     seg_ok = (length > 1e-6) & start_front & end_front & (dmax > dmin)
-    direction = seg / length[..., None]
 
     # --- triangulation coefficients (implement.cpp:49-71) ---
-    x_q = back_project(K, obj_xyf, torch.ones_like(prior_d))
-    t_tw = -r_xi_px[..., :3]
-    R_inv = T_es[..., :3, :3]
-    r3_dot_q = torch.sum(R_inv[..., 2, :] * x_q, dim=-1)
-    KRq = (K @ (R_inv @ x_q[..., None]))[..., 0]
-    Kt = (K @ t_tw[..., None])[..., 0]
+    q0 = (oxf - K[2]) / K[0]                  # back_project at depth 1
+    q1 = (oyf - K[5]) / K[4]
+    r3_dot_q = E[6] * q0 + E[7] * q1 + E[8]
+    r0 = E[0] * q0 + E[1] * q1 + E[2]
+    r1 = E[3] * q0 + E[4] * q1 + E[5]
+    KRq = [K[3 * i] * r0 + K[3 * i + 1] * r1 + K[3 * i + 2] * r3_dot_q for i in range(3)]
+    t_tw = E[12:15]
+    Kt = [K[3 * i] * t_tw[0] + K[3 * i + 1] * t_tw[1] + K[3 * i + 2] * t_tw[2]
+          for i in range(3)]
 
     fields = torch.stack(
         [
-            start[..., 0], start[..., 1], direction[..., 0], direction[..., 1],
+            start_x, start_y, seg_x / length, seg_y / length,
             length, obj_val, slot.to(torch.float32),
             prior_d, prior_s, dmin, dmax,
-            r3_dot_q, KRq[..., 0], KRq[..., 1], KRq[..., 2],
-            t_tw[..., 2], Kt[..., 0], Kt[..., 1], Kt[..., 2],
+            r3_dot_q, KRq[0], KRq[1], KRq[2],
+            t_tw[2], Kt[0], Kt[1], Kt[2],
             ref_depth, ref_sigma, ref_age.to(torch.float32),
             (pix_ok & seg_ok).to(torch.float32), reset_depth,
         ],
@@ -165,13 +215,13 @@ def epipolar_fields(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
     return fields, aged_out
 
 
-def depth_update(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
-                 history: KeyframeHistory, reset_depth, cfg: MapperConfig = MapperConfig()):
-    """Per-pixel epipolar observation + fusion (Mapper::update,
-    mapper.cpp:76-137) over the reference keyframe's base level.
-    ``reset_depth`` (H, W) is the reset prior for rejected observations
-    (``ops.depth_filter.draw_reset_depth``).
-    Returns (depth, sigma, age, DepthUpdateStats)."""
+def depth_update_by_fields(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
+                           history: KeyframeHistory, reset_depth,
+                           cfg: MapperConfig = MapperConfig()):
+    """``depth_update`` through the 24 prepared planes: ``epipolar_fields``
+    in PyTorch ops, then ``ops/cuda/epipolar.epipolar_update`` (its plain
+    version on CPU tensors, the kernel's fields entry on CUDA tensors).  The
+    plain version of the fused entry."""
     fields, aged_out = epipolar_fields(obj, obj_xi_w, rel_xi, ref_depth, ref_sigma,
                                        ref_age, history, reset_depth, cfg)
     depth, sigma, age, stats = epipolar.epipolar_update(
@@ -179,4 +229,25 @@ def depth_update(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
     )
     return depth, sigma, age.to(ref_age.dtype), DepthUpdateStats(
         observed=stats[0], accepted=stats[1], rejected=stats[2], aged_out=aged_out,
+    )
+
+
+def depth_update(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
+                 history: KeyframeHistory, reset_depth, cfg: MapperConfig = MapperConfig()):
+    """Per-pixel epipolar observation + fusion (Mapper::update,
+    mapper.cpp:76-137) over the reference keyframe's base level.
+    ``reset_depth`` (H, W) is the reset prior for rejected observations
+    (``ops.depth_filter.draw_reset_depth``).  CUDA tensors: the pose table
+    and one launch of the fused entry; CPU tensors: ``depth_update_by_fields``.
+    Returns (depth, sigma, age, DepthUpdateStats)."""
+    if resolve_device(ref_depth) == "plain":
+        return depth_update_by_fields(obj, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
+                                      history, reset_depth, cfg)
+    depth, sigma, age, stats = epipolar.epipolar_fused(
+        obj.gray, obj.mask, ref_depth, ref_sigma, ref_age, reset_depth,
+        pose_table(obj.K, obj_xi_w, rel_xi, history),
+        history.gray, history.gx, history.gy, history.gmask, history.head, history.count, cfg,
+    )
+    return depth, sigma, age, DepthUpdateStats(
+        observed=stats[0], accepted=stats[1], rejected=stats[2], aged_out=stats[3],
     )

@@ -36,7 +36,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=fa
 
 # Kernel launches since the last ``reset_launches``: each wrapper adds one
 # where it launches its kernel, and nowhere else.
-LAUNCHES = {"gn": 0, "gn_level": 0, "epipolar": 0, "regularize": 0, "framebuild": 0}
+LAUNCHES = {"gn": 0, "gn_level": 0, "epipolar": 0, "regularize": 0, "framebuild": 0,
+            "regularize_cull": 0}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
 # float32 outside the tensor cores.  A kernel's bound is taken against them.
@@ -55,9 +56,13 @@ _SIGNATURES = {
     "dvo_gn_level": ([_P] * 17 + [_I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,
                                   _I, _F, _F, _F, _P], _I),
     "dvo_regularize": ([_P] * 3 + [_I, _I, _F, _F, _P], _I),
-    "dvo_epipolar_num_blocks": ([_I], _I),
+    "dvo_epipolar_lanes": ([], _I),
+    "dvo_epipolar_threads": ([], _I),
+    "dvo_epipolar_pixels": ([], _I),
     "dvo_epipolar": ([_P] * 9 + [_I, _I, _I, _I] + [_F] * 10 + [_P], _I),
+    "dvo_epipolar_fused": ([_P] * 15 + [_I] * 10 + [_F] * 11 + [_P], _I),
     "dvo_framebuild": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "dvo_regularize_cull": ([_P] * 3 + [_I] * 4 + [_F, _F, _P], _I),
 }
 
 
@@ -135,17 +140,21 @@ def build() -> Path:
     return out
 
 
+def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
+    """Set the argument and result types of the entry points ``names``
+    (default: all of them) on a loaded library."""
+    for name in _SIGNATURES if names is None else names:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = _SIGNATURES[name]
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _library
     with _lock:
         if _library is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (argtypes, restype) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _library = lib
+            _library = bind(ctypes.CDLL(str(build())))
         return _library
 
 

@@ -8,6 +8,12 @@ structures: ``build_pyramid_planes``, ``cull_pyramid_one`` and
 for, ``ops.image.cull_image`` per level plus ``gradients``; the kernel is
 bit-identical to them (every output is a copy or one subtraction).
 
+``regularize_cull_pyramid`` is the cull as the epilogue of the depth
+regulariser: one launch of ``regularize_cull_kernel`` (same source) where
+the monocular mapper ran the pair build, ``csrc/regularize.cu`` and the
+one-plane build; its plain version is ``regularize_plain`` followed by the
+pair's.
+
 The kernel writes each plane kind into one buffer holding all levels back
 to back, and the wrappers return per-level views of it: contiguous views at
 an offset, which the other kernels take as they are.  Nothing in the port
@@ -18,8 +24,9 @@ from __future__ import annotations
 
 import torch
 
-from dvo_tpu_torch.config import resolve_device
+from dvo_tpu_torch.config import MapperConfig, resolve_device
 from dvo_tpu_torch.ops.cuda import _build
+from dvo_tpu_torch.ops.cuda import regularize as _regularize
 from dvo_tpu_torch.ops.image import cull_image, gradients
 
 MAX_VALUES = 3  # value planes one launch carries (gray, depth, sigma)
@@ -49,6 +56,15 @@ def work(shape, levels: int, n_values: int, with_mask: bool):
     return nbytes, 2 * total if with_mask else 0
 
 
+def work_regularize_cull(shape, levels: int):
+    """(bytes, float operations) of one regularize-and-cull launch on a base
+    (h0, w0) map: depth and sigma read once, every level of both written
+    once; the regulariser's operations per base pixel."""
+    h0, w0 = shape
+    total = sum(h * w for h, w in (_size(h0, w0, t) for t in _levels(levels)))
+    return 4 * 2 * (h0 * w0 + total), _regularize.FLOPS_PER_PIXEL * h0 * w0
+
+
 # ------------------------------------------------------------ plain versions
 
 def build_pyramid_planes_plain(gray, mask, depth, sigma, levels: int):
@@ -76,7 +92,22 @@ def cull_pyramid_pair_plain(depth, sigma, levels: int):
     return [(cull_image(depth, t), cull_image(sigma, t)) for t in _levels(levels)]
 
 
+def regularize_cull_pyramid_plain(depth, sigma, levels: int,
+                                  cfg: MapperConfig = MapperConfig()):
+    return cull_pyramid_pair_plain(_regularize.regularize_plain(depth, sigma, cfg), sigma,
+                                   levels)
+
+
 # ------------------------------------------------------------------- kernel
+
+def _split(buf, sizes):
+    """Per-level (h, w) views of one plane kind's buffer."""
+    views, off = [], 0
+    for h, w in sizes:
+        views.append(buf[off:off + h * w].view(h, w))
+        off += h * w
+    return views
+
 
 def _launch(values, mask, levels: int):
     """One launch over every level.  Returns (per value plane a list of
@@ -116,14 +147,8 @@ def _launch(values, mask, levels: int):
     _build.check(code, "framebuild")
     _build.LAUNCHES["framebuild"] += 1
 
-    def split(buf):
-        views, off = [], 0
-        for h, w in sizes:
-            views.append(buf[off:off + h * w].view(h, w))
-            off += h * w
-        return views
-
-    return [split(v) for v in vals], None if grads is None else [split(b) for b in grads]
+    return ([_split(v, sizes) for v in vals],
+            None if grads is None else [_split(b, sizes) for b in grads])
 
 
 # ----------------------------------------------------------------- wrappers
@@ -163,3 +188,28 @@ def cull_pyramid_pair(depth, sigma, levels: int):
         return cull_pyramid_pair_plain(depth, sigma, levels)
     (ds, ss), _ = _launch([depth, sigma], None, levels)
     return list(zip(ds, ss))
+
+
+def regularize_cull_pyramid(depth, sigma, levels: int, cfg: MapperConfig = MapperConfig()):
+    """The pyramid of the regularised depth and of the unchanged sigma, as a
+    list of (depth_t, sigma_t), coarsest first: ``regularize`` then
+    ``cull_pyramid_pair`` in one launch for CUDA tensors (it launches or
+    raises), the plain version for CPU tensors."""
+    if resolve_device(depth) == "plain":
+        return regularize_cull_pyramid_plain(depth, sigma, levels, cfg)
+    if not 1 <= levels <= 16:
+        raise ValueError(f"levels={levels}; the kernel takes 1 to 16")
+    h0, w0 = depth.shape
+    dev = depth.device
+    _build.require(depth, "depth", torch.float32, (h0, w0), dev)
+    _build.require(sigma, "sigma", torch.float32, (h0, w0), dev)
+    sizes = [_size(h0, w0, t) for t in _levels(levels)]
+    total = sum(h * w for h, w in sizes)
+    vals = torch.empty((2, total), dtype=torch.float32, device=dev)
+    code = _build.library().dvo_regularize_cull(
+        depth.data_ptr(), sigma.data_ptr(), vals.data_ptr(), h0, w0, levels, total,
+        cfg.depth_filter.gain_ramp, cfg.max_depth, _build.stream_handle(dev),
+    )
+    _build.check(code, "regularize_cull")
+    _build.LAUNCHES["regularize_cull"] += 1
+    return list(zip(_split(vals[0], sizes), _split(vals[1], sizes)))

@@ -98,9 +98,9 @@ def _tree(flat: dict):
     return build(nested)
 
 
-def load_state(path: str, device="cpu"):
+def load_state(path: str, device="cuda"):
     """The state saved at ``path`` (by this module or by ``dvo_tpu``), on
-    ``device``: a ``VOState`` when the file holds a keyframe ring, else an
+    ``device`` (the card unless ``"cpu"`` is asked for): a ``VOState`` when the file holds a keyframe ring, else an
     ``RGBDState``.  A ``VOState`` draws from a generator on ``device``
     restored from the file's ``torch_generator`` state, or (a ``dvo_tpu``
     file) from a new one seeded 0."""

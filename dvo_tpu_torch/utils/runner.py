@@ -524,7 +524,7 @@ def run_rgbd(
             depth_c = d0.astype(np.float32) * np.float32(1.0 / TUM_DEPTH_SCALE)
             sigma_c = np.where(depth_c > 1e-6, depth_sigma, 1.0).astype(np.float32)
             state = rgbd_init(*to_dev(gray_c), mask_step, *to_dev(depth_c, sigma_c), K_step,
-                              cfg_step)
+                              cfg_step, device=device)
             h, w = gray_c.shape
 
             def fill_row(bufs, k):
@@ -545,7 +545,7 @@ def run_rgbd(
         else:
             cfg_step, K_step = cfg, torch.tensor(np.asarray(calib.K, np.float32), device=device)
             gray, mask, depth, sigma = prep()
-            state = rgbd_init(*to_dev(gray, mask, depth, sigma), K_step, cfg)
+            state = rgbd_init(*to_dev(gray, mask, depth, sigma), K_step, cfg, device=device)
 
         for fi in range(start_fi, len(items)):
             gray, mask, depth, sigma = prep()
@@ -650,10 +650,10 @@ def run_kinect(
         mapped, mask, depth, sigma = prep()
         out = _Trajectory(items, metrics, verbose)
         if mode == "rgbd":
-            state = rgbd_init(mapped, mask, depth, sigma, depth_K, cfg)
+            state = rgbd_init(mapped, mask, depth, sigma, depth_K, cfg, device=device)
         else:
             state = monocular_init_with_depth(
-                mapped, mask, depth, sigma, depth_K, cfg,
+                mapped, mask, depth, sigma, depth_K, cfg, device=device,
                 generator=torch.Generator(device=device).manual_seed(0))
 
         start_fi = 1

@@ -132,11 +132,11 @@ def test_dvo_tpu_checkpoint_loads_and_continues(kind, frames, jax_runs, tmp_path
 def test_port_checkpoint_round_trip_resumes_bit_identically(kind, frames, tmp_path):
     grays, masks, depths, sigmas, K = (torch.tensor(a) for a in frames)
     if kind == "mono":
-        state = todo.monocular_init(grays[0], masks[0], K, TCFG,
+        state = todo.monocular_init(grays[0], masks[0], K, TCFG, device="cpu",
                                     generator=torch.Generator().manual_seed(11))
         state, _ = todo.monocular_run(state, grays[1:N_SAVED], masks[1:N_SAVED], K, TCFG)
     else:
-        state = todo.rgbd_init(grays[0], masks[0], depths[0], sigmas[0], K, TCFG)
+        state = todo.rgbd_init(grays[0], masks[0], depths[0], sigmas[0], K, TCFG, device="cpu")
         state, _ = todo.rgbd_run(state, grays[1:N_SAVED], masks[1:N_SAVED],
                                  depths[1:N_SAVED], sigmas[1:N_SAVED], K, TCFG)
     path = str(tmp_path / "port.npz")
@@ -158,7 +158,7 @@ def test_port_checkpoint_round_trip_resumes_bit_identically(kind, frames, tmp_pa
                                          ("ref/scenes/1/gx", "raises")])
 def test_missing_leaves_follow_the_allowlist(drop, expect, frames, tmp_path):
     grays, masks, _, _, K = (torch.tensor(a) for a in frames)
-    state = todo.monocular_init(grays[0], masks[0], K, TCFG)
+    state = todo.monocular_init(grays[0], masks[0], K, TCFG, device="cpu")
     full = str(tmp_path / "full.npz")
     tckpt.save_state(full, state)
     with np.load(full) as data:

@@ -3,10 +3,14 @@
 is a copy or one float32 subtraction, so the plain version must equal both
 the Pallas kernel (interpret mode) and the XLA build bit for bit.
 
-The CUDA kernel runs only on the card (``chip_smoke.py`` holds it equal to
-the plain version there).  Here its wrapper is driven through a NumPy
-transcription of the kernel's per-thread index arithmetic, which checks the
-wrapper's one-buffer-per-plane-kind layout and its per-level views."""
+The CUDA kernels run only on the card (``chip_smoke.py`` holds them equal to
+the plain versions there).  Here the wrappers are driven through a NumPy
+transcription of the kernels' per-thread index arithmetic, which checks the
+wrappers' one-buffer-per-plane-kind layout and their per-level views.  The
+regularize-and-cull launch (``regularize_cull_pyramid``,
+``with_regularized_depth``) is held equal to the three steps it replaces
+(``with_depth``, ``regularize``, ``with_depth``) and, at the regulariser's
+1e-6, to ``dvo_tpu``'s."""
 
 import ctypes
 import dataclasses
@@ -18,12 +22,15 @@ import pytest
 import torch
 
 from dvo_tpu.models import frame as jframe
+from dvo_tpu.models import mapper as jmapper
 from dvo_tpu.ops.pallas import framebuild as jfb
 from dvo_tpu_torch.models import frame as tframe
 from dvo_tpu_torch.models import odometry as todo
 from dvo_tpu_torch.models.odometry import frame_from_reference
 from dvo_tpu_torch.ops.cuda import _build
+from dvo_tpu_torch.config import MapperConfig
 from dvo_tpu_torch.ops.cuda import framebuild as tfb
+from dvo_tpu_torch.ops.cuda import regularize as treg
 
 torch.set_num_threads(1)
 
@@ -189,12 +196,39 @@ class _EmulatedLibrary:
             gxo[p], gyo[p], gmo[p] = gx, gy, ok
         return 0
 
+    def dvo_regularize_cull(self, depth, sigma, vals, h0, w0, levels, total, gain_ramp,
+                            max_depth, stream):
+        """``regularize_cull_kernel``, thread by thread: the regulariser's
+        value for base pixel p (taken from the plain version: its arithmetic
+        is ``csrc/regularize_pixel.cuh``'s, which the card holds equal), then
+        ``cull_store`` of it and of sigma to every level the pixel is on."""
+        f = ctypes.c_float
+        d = np.ctypeslib.as_array((f * (h0 * w0)).from_address(depth)).reshape(h0, w0)
+        s = np.ctypeslib.as_array((f * (h0 * w0)).from_address(sigma)).reshape(h0, w0)
+        out = np.ctypeslib.as_array((f * (2 * total)).from_address(vals))
+        cfg = MapperConfig()
+        assert (np.float32(gain_ramp), np.float32(max_depth)) == (
+            np.float32(cfg.depth_filter.gain_ramp), np.float32(cfg.max_depth))
+        reg = treg.regularize_plain(torch.from_numpy(d), torch.from_numpy(s), cfg).numpy()
+        for y in range(h0):
+            for x in range(w0):
+                off = 0
+                for t in range(levels - 1, -1, -1):
+                    ht, wt = (h0 + (1 << t) - 1) >> t, (w0 + (1 << t) - 1) >> t
+                    step = (1 << t) - 1
+                    if (y & step) == 0 and (x & step) == 0:
+                        q = off + (y >> t) * wt + (x >> t)
+                        out[q], out[total + q] = reg[y, x], s[y, x]
+                    off += ht * wt
+        return 0
+
 
 @pytest.fixture
 def emulated(monkeypatch):
     """Route the wrappers to the launch path on CPU tensors, with the
     emulated kernel behind it."""
     monkeypatch.setattr(tfb, "resolve_device", lambda _: "cuda")
+    monkeypatch.setattr(tframe, "resolve_device", lambda _: "cuda")
     monkeypatch.setattr(_build, "library", lambda: _EmulatedLibrary())
     monkeypatch.setattr(_build, "stream_handle", lambda _: 0)
     _build.reset_launches()
@@ -227,6 +261,82 @@ def test_launch_layout_matches_plain(emulated, entry):
             continue
         assert g.is_contiguous()
         torch.testing.assert_close(g, wnt, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("h,w,levels", [(27, 35, 3), (24, 32, 4), (5, 3, 3), (16, 16, 1)])
+def test_regularize_cull_launch_matches_plain(emulated, h, w, levels):
+    """The one launch writes every level of both pyramids as the plain
+    version does (``regularize_plain`` then the pair's culls)."""
+    _, _, depth, sigma = (torch.from_numpy(x) for x in _inputs(h * w + levels, h, w))
+    got = tfb.regularize_cull_pyramid(depth, sigma, levels)
+    want = tfb.regularize_cull_pyramid_plain(depth, sigma, levels)
+    assert _build.LAUNCHES["regularize_cull"] == 1 and _build.LAUNCHES["framebuild"] == 0
+    assert len(got) == len(want) == levels
+    for (gd, gs), (wd, ws) in zip(got, want):
+        assert gd.is_contiguous() and gs.is_contiguous()
+        assert gd.shape == wd.shape and torch.equal(gd, wd) and torch.equal(gs, ws)
+    # ... which is the three steps it replaces, one by one.
+    steps = tfb.cull_pyramid_pair_plain(treg.regularize_plain(depth, sigma), sigma, levels)
+    for (wd, ws), (sd, ss) in zip(want, steps):
+        assert torch.equal(wd, sd) and torch.equal(ws, ss)
+
+
+def _frame_and_maps(seed, h, w, levels):
+    gray, mask, depth, sigma = _inputs(seed, h, w)
+    K = np.eye(3, dtype=np.float32)
+    jf = jframe.build_frame_with_depth(*(jnp.asarray(x) for x in (gray, mask, depth, sigma, K)),
+                                       levels, 0, 0)
+    rng = np.random.default_rng(seed + 1)
+    d2 = (depth * (0.8 + 0.4 * rng.random((h, w)))).astype(np.float32)
+    d2[2, 2] = 9.0                                    # past the 6 m clamp
+    s2 = (sigma * 0.5 + 0.02).astype(np.float32)
+    age = rng.integers(0, 4, (h, w)).astype(np.int32)
+    return jf, d2, s2, age
+
+
+@pytest.mark.parametrize("route", ["plain", "launch"])
+def test_with_regularized_depth_matches_the_three_steps_and_dvo_tpu(route, request):
+    """``with_regularized_depth`` = ``with_depth`` + ``regularize`` +
+    ``with_depth`` exactly (both routes), and ``dvo_tpu``'s composition of
+    the same three within the regulariser's 1e-6 (culls and sigma exact)."""
+    h, w, levels = 30, 40, 3
+    jf, d2, s2, age = _frame_and_maps(4, h, w, levels)
+    tf = frame_from_reference(jax.tree.map(np.asarray, jf), "cpu")
+    td, ts, ta = (torch.from_numpy(x) for x in (d2, s2, age))
+    steps = tframe.with_depth(tf, td, ts, ta)
+    steps = tframe.with_depth(steps, treg.regularize_plain(td, ts))
+    if route == "launch":
+        request.getfixturevalue("emulated")
+    got = tframe.with_regularized_depth(tf, td, ts, ta)
+    if route == "launch":
+        assert _build.LAUNCHES == {**{k: 0 for k in _build.LAUNCHES}, "regularize_cull": 1}
+    assert torch.equal(got.age, ta)
+    jw = jframe.with_depth(jf, jnp.asarray(d2), jnp.asarray(s2), jnp.asarray(age))
+    jw = jframe.with_depth(jw, jmapper.regularize(jw.scenes[-1].depth, jw.scenes[-1].sigma))
+    for g, st, j in zip(got.scenes, steps.scenes, jw.scenes):
+        assert torch.equal(g.depth, st.depth) and torch.equal(g.sigma, st.sigma)
+        assert g.gray is st.gray and g.gx is st.gx
+        np.testing.assert_allclose(g.depth.numpy(), np.asarray(j.depth), rtol=1e-6, atol=1e-6)
+        _equal(g.sigma, j.sigma, "sigma")
+    assert float(got.base.depth.max()) <= MapperConfig().max_depth
+
+
+def test_with_base_depth_touches_the_base_level_only():
+    jf, d2, s2, _ = _frame_and_maps(6, 20, 24, 3)
+    tf = frame_from_reference(jax.tree.map(np.asarray, jf), "cpu")
+    got = tframe.with_base_depth(tf, torch.from_numpy(d2), torch.from_numpy(s2))
+    assert torch.equal(got.base.depth, torch.from_numpy(d2))
+    assert torch.equal(got.base.sigma, torch.from_numpy(s2))
+    assert got.base.gray is tf.base.gray and got.age is tf.age
+    for a, b in zip(got.scenes[:-1], tf.scenes[:-1]):
+        assert a is b
+
+
+def test_regularize_cull_work():
+    """Depth and sigma read once, every level of both written once."""
+    nbytes, flops = tfb.work_regularize_cull((120, 160), 3)
+    total = 120 * 160 + 60 * 80 + 30 * 40
+    assert nbytes == 8 * (120 * 160 + total) and flops == treg.FLOPS_PER_PIXEL * 120 * 160
 
 
 def test_state_exchange_reads_views_at_an_offset(emulated):

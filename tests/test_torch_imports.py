@@ -5,6 +5,7 @@ touching the CUDA library."""
 
 import ast
 import ctypes
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from dvo_tpu_torch.config import MapperConfig, TrackerConfig, resolve_device
+from dvo_tpu_torch.models import frame, mapper
 from dvo_tpu_torch.ops.cuda import _build, epipolar, framebuild, gn, gn_level, regularize
 
 torch.set_num_threads(1)
@@ -76,6 +78,10 @@ def test_build_command_targets_sm90a_in_ignored_dir(monkeypatch):
     assert "-shared" in link and link[-len(objs):] == [str(o) for o in objs]
     assert {Path(c).name for cmd in cmds for c in cmd if c.endswith(".cu")} == {
         "gn.cu", "gn_level.cu", "epipolar.cu", "regularize.cu", "framebuild.cu"}
+    assert {p.name for p in _build._headers()} == {
+        "dvo_kernels.h", "gn_pixel.cuh", "epipolar_pixel.cuh", "regularize_pixel.cuh",
+        "framebuild_cull.cuh"}
+    assert all(cmd[cmd.index("-I") + 1] == str(_build.SOURCE_DIR) for cmd in cmds)
     ignored = (REPO / ".gitignore").read_text().split()
     assert _build.BUILD_DIR.relative_to(REPO).as_posix() + "/" in ignored
 
@@ -89,7 +95,34 @@ def test_library_name_tracks_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "SOURCE_DIR", src)
     first = _build.library_path()
     (src / "k.cu").write_text("// two\n")
-    assert _build.library_path() != first
+    second = _build.library_path()
+    assert second != first
+    # ... and so does a changed or added header (*.h, *.cuh).
+    (src / "k_pixel.cuh").write_text("// one\n")
+    third = _build.library_path()
+    assert third != second
+    (src / "k_pixel.cuh").write_text("// two\n")
+    assert _build.library_path() != third
+
+
+@pytest.mark.parametrize("entry,pointers,ints,floats", [
+    ("dvo_epipolar", 9, 4, 10), ("dvo_epipolar_fused", 15, 10, 11),
+    ("dvo_regularize_cull", 3, 4, 2), ("dvo_regularize", 3, 2, 2), ("dvo_framebuild", 9, 5, 0),
+])
+def test_entry_signatures(entry, pointers, ints, floats):
+    """The ctypes signature of each entry: its pointers, then its ints, then
+    its floats, then the stream; an int result (cudaError)."""
+    argtypes, restype = _build._SIGNATURES[entry]
+    assert restype is ctypes.c_int
+    assert argtypes == ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                        + [ctypes.c_float] * floats + [ctypes.c_void_p])
+
+
+def test_every_entry_is_defined_in_a_source():
+    """Each bound name is an ``extern "C"`` function of some ``csrc/*.cu``."""
+    text = "".join(src.read_text() for src in _build.sources())
+    for name in _build._SIGNATURES:
+        assert f'extern "C" int {name}(' in text, name
 
 
 def test_failed_build_raises_with_stderr(tmp_path, monkeypatch):
@@ -149,10 +182,39 @@ def _pair_inputs(rng):
     return d, s, levels
 
 
+def _scene_frame(rng, h=12, w=16, levels=2):
+    from dvo_tpu_torch.models.frame import build_frame_with_depth
+
+    g, m, d, s, _ = _build_inputs(rng, h, w)
+    return build_frame_with_depth(g, m, d, s, torch.eye(3), levels, 0, 0)
+
+
+def _regularized_inputs(rng):
+    frame = _scene_frame(rng)
+    _, _, d, s, _ = _build_inputs(rng, 12, 16)
+    return frame, d, s, torch.ones((12, 16), dtype=torch.int32), MapperConfig()
+
+
+def _depth_update_inputs(rng, h=12, w=16, c=2):
+    from dvo_tpu_torch.models.history import KeyframeHistory, push
+
+    hist = KeyframeHistory.create(c, h, w)
+    for _ in range(c):
+        hist = push(hist, _scene_frame(rng, h, w))
+    obj = _scene_frame(rng, h, w).base
+    f = lambda: torch.from_numpy(rng.uniform(0.5, 1.5, (h, w)).astype(np.float32))
+    return (obj, torch.tensor([0.02, 0, 0, 0, 0, 0.0]), torch.tensor([0.01, 0, 0, 0, 0, 0.0]),
+            f(), f() * 0.2, torch.zeros((h, w), dtype=torch.int32), hist, f(),
+            MapperConfig(crop_x=(1, 14), crop_y=(1, 10)))
+
+
 def _flat(out):
-    """Tensors of a kernel's output, in order (tuples, lists, per-level dicts)."""
+    """Tensors of a kernel's output, in order (tuples, lists, per-level
+    dicts, dataclasses)."""
     if isinstance(out, torch.Tensor):
         return [out]
+    if dataclasses.is_dataclass(out):
+        out = {f.name: getattr(out, f.name) for f in dataclasses.fields(out)}
     if isinstance(out, dict):
         return [t for v in out.values() for t in _flat(v)]
     if isinstance(out, (tuple, list)):
@@ -171,6 +233,11 @@ def _flat(out):
      _pair_inputs),
     ("framebuild_one", framebuild.cull_pyramid_one, framebuild.cull_pyramid_one_plain,
      lambda rng: _pair_inputs(rng)[::2]),
+    ("regularize_cull", framebuild.regularize_cull_pyramid,
+     framebuild.regularize_cull_pyramid_plain, lambda rng: _pair_inputs(rng) + (MapperConfig(),)),
+    ("with_regularized_depth", frame.with_regularized_depth, frame.with_regularized_depth_plain,
+     _regularized_inputs),
+    ("depth_update", mapper.depth_update, mapper.depth_update_by_fields, _depth_update_inputs),
 ])
 def test_cpu_tensors_take_the_plain_path(name, wrapper, plain, make, rng, monkeypatch):
     def no_cuda(*_, **__):
@@ -185,7 +252,7 @@ def test_cpu_tensors_take_the_plain_path(name, wrapper, plain, make, rng, monkey
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert _build.LAUNCHES == {"gn": 0, "gn_level": 0, "epipolar": 0, "regularize": 0,
-                               "framebuild": 0}
+                               "framebuild": 0, "regularize_cull": 0}
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -208,6 +275,11 @@ def test_kernel_inputs_are_checked(bad, match):
     (lambda g, m, d, s: framebuild.cull_pyramid_pair(d, s[1:], 3), "shape"),
     (lambda g, m, d, s: framebuild.cull_pyramid_one(d.half(), 3), "dtype"),
     (lambda g, m, d, s: framebuild.cull_pyramid_one(d, 0), "levels"),
+    (lambda g, m, d, s: framebuild.regularize_cull_pyramid(d.double(), s, 3), "depth: dtype"),
+    (lambda g, m, d, s: framebuild.regularize_cull_pyramid(d, s[1:], 3), "sigma: shape"),
+    (lambda g, m, d, s: framebuild.regularize_cull_pyramid(d, s.T.contiguous().T, 3),
+     "sigma: not contiguous"),
+    (lambda g, m, d, s: framebuild.regularize_cull_pyramid(d, s, 17), "levels"),
 ])
 def test_framebuild_launch_checks_its_inputs(call, match, rng, monkeypatch):
     """On the launch route every input is checked before the library is

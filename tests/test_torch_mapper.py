@@ -189,6 +189,10 @@ TCFG = config_from_reference(CFG)
     ([[0, 0, 0, 0, 0, 0], [-0.04, 0.01, 0, 0, 0.01, 0], [-0.08, 0, 0.02, 0.01, 0, 0]],
      [-0.12, 0.01, 0.02, 0.01, 0.0, 0.005],
      lambda r, h, w: r.integers(0, 4, (h, w)).astype(np.int32)),
+    # a full 4-slot ring that has wrapped (six keyframes pushed), ages 0..3 all live
+    ([[-0.02 * k, 0.002 * k, 0.004 * k, 0.002 * k, 0, 0] for k in range(6)],
+     [-0.13, 0.01, 0.02, 0.01, 0.0, 0.004],
+     lambda r, h, w: r.integers(0, 4, (h, w)).astype(np.int32)),
 ])
 def test_depth_update_matches(rng, poses, obj_xi, ages):
     (jd, js, ja, jst), (td, ts, ta, tst) = _depth_update_case(rng, 60, 80, poses, obj_xi,
@@ -202,6 +206,27 @@ def test_depth_update_matches(rng, poses, obj_xi, ages):
     _assert_maps_close(ts.numpy(), js)
     assert np.mean(ta.numpy() == np.asarray(ja)) >= 0.995
     assert ta.dtype == torch.int32
+
+
+def test_pose_table_matches_dvo_tpu_poses(rng):
+    """The pose table's rows against ``dvo_tpu.lie``: T_rel, and per ring
+    slot T_es = exp(-compose(obj_xi, -kf_xi)) and t_tw (float noise of two
+    Lie-algebra implementations: 1e-6)."""
+    poses = [[-0.03 * k, 0.01 * k, 0.002 * k, 0.004 * k, -0.003 * k, 0.001 * k] for k in range(4)]
+    jh, _, _, K = _ring(rng, 12, 16, poses)
+    obj_xi = np.array([-0.1, 0.02, 0.01, 0.01, -0.01, 0.004], np.float32)
+    rel = np.array([-0.01, 0.002, 0.004, 0.001, 0.0, -0.002], np.float32)
+    table = tmapper.pose_table(_t(K), _t(obj_xi), _t(rel), _port_history(jh)).numpy()
+    np.testing.assert_array_equal(table[0, :9], K.reshape(9))
+    T_rel = np.asarray(jlie.se3_exp(jnp.asarray(rel)))
+    np.testing.assert_allclose(table[1, :12], np.r_[T_rel[:3, :3].ravel(), T_rel[:3, 3]],
+                               rtol=0, atol=1e-6)
+    assert table[1, 12] == rel[2]
+    for c in range(4):
+        r_xi = jlie.compose(jnp.asarray(obj_xi), -jh.xi[c])
+        T_es = np.asarray(jlie.se3_exp(-r_xi))
+        want = np.r_[T_es[:3, :3].ravel(), T_es[:3, 3], -np.asarray(r_xi)[:3]]
+        np.testing.assert_allclose(table[2 + c, :15], want, rtol=0, atol=1e-6)
 
 
 def test_epipolar_plain_is_what_depth_update_runs(rng):

@@ -134,7 +134,7 @@ def test_uint8_input_and_generator_draws(sequence):
 
     def run(frames):
         st = todo.monocular_init(torch.tensor(frames[0]), torch.tensor(masks[0]),
-                                 torch.tensor(K), TCFG, noise=noise,
+                                 torch.tensor(K), TCFG, device="cpu", noise=noise,
                                  generator=torch.Generator().manual_seed(5))
         return todo.monocular_run(st, torch.tensor(frames[1:]), torch.tensor(masks[0]),
                                   torch.tensor(K), TCFG)[1]
@@ -159,18 +159,97 @@ def test_culled_input_matches_pre_culled(sequence):
         dataclasses.replace(CFG, pyramid=PyramidConfig(levels=2, culls=1)))
     noise = torch.zeros((H, W))
     st = todo.monocular_init(torch.tensor(big[0]), torch.tensor(bigm[0]), torch.tensor(K2),
-                             cfg1, noise=noise)
+                             cfg1, device="cpu", noise=noise)
     r1 = todo.monocular_run(st, torch.tensor(big[1:]), torch.tensor(bigm[1:]),
                             torch.tensor(K2), cfg1, reset_depths=torch.ones((2, H, W)))[1]
     st = todo.monocular_init(torch.tensor(grays[0]), torch.tensor(masks[0]), torch.tensor(K),
-                             TCFG, noise=noise)
+                             TCFG, device="cpu", noise=noise)
     r0 = todo.monocular_run(st, torch.tensor(grays[1:3]), torch.tensor(masks[1:3]),
                             torch.tensor(K), TCFG, reset_depths=torch.ones((2, H, W)))[1]
     torch.testing.assert_close(r1.T_world, r0.T_world, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("entry", ["monocular_init", "monocular_init_with_depth", "rgbd_init"])
+def test_entry_points_ask_for_the_card_by_default(entry, sequence):
+    """Without ``device=`` an entry point runs on the card; where there is
+    none it raises and says so — it never runs on the CPU unasked, whatever
+    device its inputs lie on.  ``device="cpu"`` is the way to ask."""
+    grays, masks, K = sequence
+    g, m, k = torch.tensor(grays[0]), torch.tensor(masks[0]), torch.tensor(K)
+    d, s = torch.full((H, W), 1.5), torch.full((H, W), 0.1)
+    args = (g, m, k) if entry == "monocular_init" else (g, m, d, s, k)
+    fn = getattr(todo, entry)
+    assert fn.__kwdefaults__["device"] == "cuda"
+    if torch.cuda.is_available():
+        state = fn(*args, TCFG)
+    else:
+        with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda|nvidia"):
+            fn(*args, TCFG)
+        state = fn(*args, TCFG, device="cpu")
+        assert state.ref.xi.device.type == "cpu"
+    assert state.ref.base.gray.device == state.ref.xi.device
+
+
+def test_load_state_asks_for_the_card_by_default():
+    import inspect
+
+    from dvo_tpu_torch.utils import checkpoint, runner, stream
+    assert inspect.signature(checkpoint.load_state).parameters["device"].default == "cuda"
+    for fn in (runner.run_monocular, runner.run_rgbd, runner.run_kinect, stream.run_stream):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
+@pytest.mark.parametrize("branch", ["promotion", "depth_update"])
+def test_step_builds_the_reference_in_one_call(branch, sequence, monkeypatch):
+    """Per ``monocular_step``: one pyramid build (the tracking frame) and one
+    regularize-and-cull, in either mapping branch — no pair or one-plane cull
+    and no separate regulariser call; the promotion branch pushes the
+    propagated, un-regularised base into the ring."""
+    from dvo_tpu_torch.models import frame as tframe
+    from dvo_tpu_torch.models import mapper as tmapper
+
+    grays, masks, K = sequence
+    cfg = dataclasses.replace(TCFG, mapper=dataclasses.replace(
+        TCFG.mapper, max_forward=1 if branch == "promotion" else 50, min_movement=1e9))
+    state = todo.monocular_init(torch.tensor(grays[0]), torch.tensor(masks[0]),
+                                torch.tensor(K), cfg, device="cpu", noise=torch.zeros((H, W)))
+    calls = {}
+
+    def counted(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            calls.setdefault(name + "_out", []).append(out := fn(*a, **k))
+            return out
+        monkeypatch.setattr(module, name, wrapper)
+
+    for name in ("build_pyramid_planes", "cull_pyramid_pair", "cull_pyramid_one",
+                 "regularize_cull_pyramid", "regularize"):
+        counted(tframe, name)
+    counted(todo, "propagate")
+    # frame.py on its launch route (the wrappers it calls stay on their plain one)
+    monkeypatch.setattr(tframe, "resolve_device", lambda _: "cuda")
+    new, res = todo.monocular_step(state, torch.tensor(grays[1]), torch.tensor(masks[1]),
+                                   torch.tensor(K), cfg, reset_depth=torch.ones((H, W)))
+    assert bool(res.is_keyframe) == (branch == "promotion")
+    assert {k: v for k, v in calls.items() if not k.endswith("_out")} == {
+        "build_pyramid_planes": 1, "regularize_cull_pyramid": 1,
+        **({"propagate": 1} if branch == "promotion" else {})}
+    reg_d, reg_s = calls["regularize_cull_pyramid_out"][0][-1]
+    assert new.ref.base.depth is reg_d and new.ref.base.sigma is reg_s
+    if branch == "promotion":
+        d, s, age = calls["propagate_out"][0]
+        head = new.history.head
+        assert torch.equal(new.history.depth[head], d) and torch.equal(new.history.sigma[head], s)
+        assert torch.equal(new.ref.base.depth, tmapper.regularize(d, s, cfg.mapper))
+        assert torch.equal(new.ref.age, age) and new.history.count == 2
+        assert torch.equal(new.history.gx[head], new.ref.base.gx)
 
 
 def test_bundle_adjustment_is_refused(sequence):
     grays, masks, K = sequence
     cfg = dataclasses.replace(TCFG, ba=dataclasses.replace(TCFG.ba, enabled=True))
     with pytest.raises(NotImplementedError):
-        todo.monocular_init(torch.tensor(grays[0]), torch.tensor(masks[0]), torch.tensor(K), cfg)
+        todo.monocular_init(torch.tensor(grays[0]), torch.tensor(masks[0]), torch.tensor(K), cfg,
+                            device="cpu")

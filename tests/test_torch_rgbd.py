@@ -97,7 +97,7 @@ def test_chunked_run_equals_per_frame(small_sequence, driver):
     grays, masks, depths, sigmas, K = small_sequence
     cfg = config_from_reference(
         dataclasses.replace(DVOConfig.rgbd(), pyramid=PyramidConfig(levels=2, culls=0)))
-    s0 = todo.rgbd_init(*_t(grays[0], masks[0], depths[0], sigmas[0], K), cfg)
+    s0 = todo.rgbd_init(*_t(grays[0], masks[0], depths[0], sigmas[0], K), cfg, device="cpu")
     rest = (grays[1:], masks[1:], depths[1:], sigmas[1:])
     if driver == "shared_mask":
         rest = (grays[1:], np.repeat(masks[:1], N - 1, axis=0), depths[1:], sigmas[1:])
@@ -139,7 +139,8 @@ def test_rgbd_run_raw_equals_host_converted(small_sequence, culls):
     depth_f = counts.astype(np.float32) * np.float32(1.0 / 5000.0)
     sigma_f = np.where(depth_f > 1e-6, 0.1, 1.0).astype(np.float32)
 
-    s0 = todo.rgbd_init(*_t(gray_f[0], masks[0], depth_f[0], sigma_f[0], K), cfg)
+    s0 = todo.rgbd_init(*_t(gray_f[0], masks[0], depth_f[0], sigma_f[0], K), cfg,
+                        device="cpu")
     s_raw, r_raw = todo.rgbd_run_raw(s0, *_t(u8[1:], masks[1:], counts[1:], K), cfg)
     s_f, r_f = todo.rgbd_run(s0, *_t(gray_f[1:], masks[1:], depth_f[1:], sigma_f[1:], K), cfg)
     torch.testing.assert_close(r_raw.T_world, r_f.T_world, rtol=0, atol=0)
@@ -187,7 +188,8 @@ def mono_depth_runs():
     st0 = jodo.monocular_init_with_depth(*_j(grays[0], masks[0], depth0, sigma0, K),
                                          jax.random.PRNGKey(4), MONO_CFG)
     stj, rj = jodo.monocular_run(st0, *_j(grays[1:], masks[1:], K), MONO_CFG)
-    sp = todo.monocular_init_with_depth(*_t(grays[0], masks[0], depth0, sigma0, K), MONO_TCFG)
+    sp = todo.monocular_init_with_depth(*_t(grays[0], masks[0], depth0, sigma0, K), MONO_TCFG,
+                                        device="cpu")
     stp, rp = todo.monocular_run(sp, *_t(grays[1:], masks[1:], K), MONO_TCFG,
                                  reset_depths=torch.from_numpy(_reset_planes(st0.key, 6, MONO_CFG)))
     return (stj, rj), (stp, rp)
