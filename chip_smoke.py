@@ -46,8 +46,9 @@ Phases, one line each (or a few):
                 entry; the reference rebuilt by three launches), twice, and
                 on the fused route again (A, B, B, A): ms/frame, device ops
                 per frame and idle share of each, and one frame that is no
-                keyframe profiled on both.  Then the stepwise GN loop, twice,
-                and the level kernel again (A, B, B, A), as for the routes.
+                keyframe profiled on both.  Then the first 24 frames with the
+                stepwise GN loop, twice, and with the level kernel again (A,
+                B, B, A), as for the routes.
   5. cpu      — the first 8 frames again on the CPU (plain versions, same
                 bootstrap noise and reset planes); poses and keyframe flags
                 must agree with the CUDA run.
@@ -76,7 +77,28 @@ Phases, one line each (or a few):
                 Kinect RGB-D poses within 5e-3 of the RGB-D CLI's; each Kinect
                 mode's first 5 frames (one chunk and a tail) within 1e-5 of
                 the same command with ``--device cpu``, both fed the same
-                reset planes.
+                reset planes.  Then ``--trace``, ``--gallery`` and ``--stream``
+                once each on the card (8 mono frames): the trace file must
+                exist, the gallery PNG must have the ring's size, the stream
+                must odometrise every frame of the directory.
+ 10. ba       — the mono path of phase 4 with ``cfg.ba`` on (window 4, 5
+                iterations: the CLI's defaults): poses, keyframes and
+                ``ba_cost`` of the first 24 frames against the CPU's; every
+                promotion with a full window has a finite ``ba_cost`` >= 0
+                and ``ba_window_xi`` is (4, 6); the launches are exactly the
+                mono path's; one host sync per frame; device ops, device-busy
+                and wall ms of one ``bundle_adjust`` with the targets batched
+                and with the literal double loop; the run with and without BA
+                in turns (A, B, B, A).
+ 11. posegraph — ``optimize_pose_graph_padded`` on a drifting circle with
+                closures on the card against the CPU; then the CLI with ``--ba
+                --pose-graph --pose-graph-every 4`` (``--chunk 24`` and
+                ``--chunk 0``) on a 49-frame mono PNG sequence that goes out
+                and comes back over its own frames, so that loop closures
+                exist: finite poses, the graph's node, edge and closure
+                counts, the closure re-tracks' launches counted exactly.
+``python3 chip_smoke.py --back-end`` runs phases 1, 2, 10 and 11 only (a
+shorter call while working on the back end; it prints no result line).
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then a JSON line of per-kernel results and, last, the device JSON
 line.  Any failure raises (exit code != 0) before the last line is printed.
@@ -86,6 +108,7 @@ It imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -106,6 +129,7 @@ SEED = 0
 N_FRAMES = 48           # frames after the first (keyframe) one
 CHUNK = 24
 CPU_FRAMES = 8
+STEPWISE_FRAMES = 24    # frames of the stepwise-GN yardstick runs (one chunk)
 H, W = 480, 640
 STEP_XI = (0.014, 0.004, 0.006, 0.001, -0.002, 0.001)  # per-frame motion
 # RGB-D: Kinect v2 depth resolution, culled once by DVOConfig.rgbd() to a
@@ -166,6 +190,36 @@ STEP_TOL = 5e-3
 # depth holes, which the Kinect path masks out of the gray (measured 8.1e-4
 # on the H100).  Held to the rendered-step bound.
 KINECT_GAP_TOL = STEP_TOL
+# The back end.  One bundle_adjust on the same window differs between the
+# card and the CPU by far more than float noise: a projected coordinate that
+# moves by an ulp flips a pixel across a validity or Huber gate, and on
+# depths grown from the noise bootstrap thousands of pixels sit near one
+# (measured on the H100: 3.5e-4 on the twists of a solve that moves them by
+# 1.8e-3, costs within 1.1e-3; batched against looped targets, whose pixels
+# round alike, 6.5e-6).  Through the ring's depths that feeds the next
+# promotions: CUDA vs CPU poses 1.4e-6 before the first BA, 1.4e-5 at it,
+# 1.0e-3 at the second, 1.1e-2 at the third (the same digits in two calls).
+BA_WINDOW, BA_ITERS = 4, 5   # python -m dvo_tpu_torch.run --ba's defaults
+BA_CPU_FRAMES = 24
+BA_FIRST_TOL = 1e-3          # poses up to the frame before the second (1.7e-4 measured)
+BA_POSE_TOL = 5e-2           # poses over all BA_CPU_FRAMES frames
+BA_SOLVE_TOL = 2e-3          # one bundle_adjust, card vs CPU and batched vs loop
+BA_SYNC_FRAMES = 6
+PG_EVERY = 4                 # --pose-graph-every in the posegraph phase
+# The pose-graph solve on the card against the CPU.  The costs agree to four
+# digits; the twists differ by 1.7e-3 (measured): once the cost is on its
+# plateau a step is accepted or rejected on float noise, and the accepted
+# ones move along the graph's weakly constrained directions.
+PG_XI_TOL = 5e-3
+PG_COST_TOL = 1e-2           # final cost, relative
+# The CLI's chunked path against its per-frame path with --ba --pose-graph,
+# over the first CPU_FRAMES frames (before the first BA promotion), at the
+# tolerance tests/test_runner.py holds dvo_tpu's pair to.  Later frames are
+# printed: the two paths normalise gray with different roundings, and BA
+# amplifies that as it does the card-vs-CPU difference above.
+PG_CLI_TOL = 5e-3
+PG_CLI_ALL_TOL = 2e-2        # over all frames (5.6e-3 measured)
+EXTRA_FRAMES = 8             # frames of the --trace/--gallery/--stream runs
 
 
 def phase(name: str, msg: str) -> None:
@@ -1156,6 +1210,7 @@ def cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_p
                          f"vs on the CPU: max |dT| {dT:.3g} (tol {POSE_TOL})")
             if not dT <= POSE_TOL:
                 raise AssertionError(f"cli_kinect_{mode}: CUDA and CPU runs disagree")
+        summary["extras"] = cli_extras(root, mono_dir, mono_yaml, cfg)
     return summary
 
 
@@ -1253,15 +1308,16 @@ def paired_routes(name, fn, frames, first):
     return ms, fields_launches, (dT, dT_first), same_kf
 
 
-def paired_loops(name, fn, frames, poses_of, first):
-    """After ``first`` (the path's run with the level kernel: output,
-    seconds, launches), the same path with the stepwise loop twice and
-    with the level kernel again: A, B, B, A in one process.  Returns
-    (ms/frame of the four runs by loop, the stepwise launches, max |dT|
-    of a stepwise run against the level kernel's over all frames and over
-    the first CPU_FRAMES)."""
-    ms = {"level": [1e3 * first[1] / frames], "stepwise": []}
-    T_level = poses_of(first[0])
+def paired_loops(name, fn, frames, poses_of, first, first_frames):
+    """After ``first`` (the path's run with the level kernel over
+    ``first_frames`` frames: output, seconds, launches), the first ``frames``
+    frames of the same path (``fn()``) with the stepwise loop twice and with
+    the level kernel again: A, B, B, A in one process.  Returns (ms/frame of
+    the four runs by loop, the stepwise launches, max |dT| of a stepwise run
+    against the level kernel's over those frames and over the first
+    CPU_FRAMES)."""
+    ms = {"level": [1e3 * first[1] / first_frames], "stepwise": []}
+    T_level = poses_of(first[0])[:frames]
     dT, dT_first = 0.0, 0.0
     for loop in ("stepwise", "stepwise", "level"):
         with stepwise_tracker() if loop == "stepwise" else contextlib.nullcontext():
@@ -1306,6 +1362,311 @@ def profiled_loops(fn, frames, ms_per_frame, other=("stepwise", stepwise_tracker
     return out
 
 
+def png_size(path):
+    """(height, width) from a PNG's IHDR."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
+
+
+def cli_extras(root, mono_dir, mono_yaml, cfg):
+    """``--trace`` and ``--gallery`` on a short mono run, and ``--stream``
+    over a directory that holds the same frames: each once, on the card."""
+    import shutil
+
+    n = EXTRA_FRAMES
+    trace_dir, gallery = os.path.join(root, "trace"), os.path.join(root, "gallery.png")
+    got = cli_path("cli_mono_trace_gallery", [
+        "--data", mono_dir, "--calib", mono_yaml, "--mode", "mono", "--chunk", "3",
+        "--max-frames", str(n), "--trace", trace_dir, "--gallery", gallery,
+        "--checkpoint", os.path.join(root, "extras.npz"),
+        "--out", os.path.join(root, "extras.txt")])
+    trace = os.path.join(trace_dir, "trace.json")
+    if not os.path.isfile(trace) or os.path.getsize(trace) == 0:
+        raise AssertionError("cli --trace wrote no trace.json")
+    count = got["state"].history.count
+    h0, w0 = H >> cfg.pyramid.culls, W >> cfg.pyramid.culls
+    want = (count * h0 + 2 * (count - 1), 3 * w0 + 4)
+    if png_size(gallery) != want:
+        raise AssertionError(f"cli --gallery: PNG of {png_size(gallery)}, expected {want} for "
+                             f"{count} keyframes")
+    live = os.path.join(root, "live")
+    os.makedirs(live)
+    for i in range(n):
+        shutil.copy(os.path.join(mono_dir, f"c{i:04d}.png"), live)
+    out = os.path.join(root, "stream.txt")
+    streamed = cli_path("cli_mono_stream", ["--data", live, "--calib", mono_yaml, "--stream",
+                                            "--stream-idle", "0.5", "--out", out])
+    report = streamed["report"]
+    with open(out) as f:
+        lines = [line for line in f if line.strip() and not line.startswith("#")]
+    if report.get("streamed") is not True or report["frames"] != n or len(lines) != n:
+        raise AssertionError(f"cli --stream: report {report}, {len(lines)} trajectory lines")
+    require_launched("cli_mono_stream", streamed["launches"], MONO_KERNELS,
+                     (cfg.pyramid.levels, n - 1))
+    phase("cli", f"--trace: {os.path.getsize(trace)} bytes of trace.json; --gallery: "
+                 f"{want[1]}x{want[0]} PNG of {count} keyframes; --stream: {n} frames of a "
+                 f"directory odometrised, launches {streamed['launches']}")
+    return dict(trace_bytes=os.path.getsize(trace), gallery_size=list(want),
+                stream_frames=report["frames"])
+
+
+def ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path):
+    """The mono path with windowed BA on every promotion whose window is
+    full (phase 10 of the module docstring).  Returns its numbers."""
+    from dvo_tpu_torch.models import ba
+    from dvo_tpu_torch.models.odometry import _cull_chunk, monocular_init, monocular_run
+
+    cfg_ba = dataclasses.replace(cfg, ba=dataclasses.replace(
+        cfg.ba, enabled=True, window=BA_WINDOW, iterations=BA_ITERS))
+
+    def run(cfg_x, device, n, keep=None):
+        g, m = (grays, masks) if device == dev else (grays[:n + 1].cpu(), masks[:n + 1].cpu())
+        state = monocular_init(g[0], m[0], K.to(device), cfg_x, device=device, noise=noise)
+        outs = []
+        for c in range(0, n, CHUNK):
+            sl = slice(1 + c, 1 + min(c + CHUNK, n))
+            state, res = monocular_run(state, g[sl], m[sl], K.to(device), cfg_x,
+                                       resets[c:min(c + CHUNK, n)].to(device))
+            outs.append(res)
+            if keep is not None and not keep:
+                keep.append(state)     # the state after the first chunk
+        return outs
+
+    cat = lambda outs, f: torch.cat([f(r) for r in outs])
+    mids = []
+    first = run_path("mono_ba", lambda: run(cfg_ba, dev, N_FRAMES, mids))
+    outs, elapsed, launches = first
+    by_path["mono_ba"] = launches
+    T, kf = cat(outs, lambda r: r.T_world), cat(outs, lambda r: r.is_keyframe)
+    cost, win_xi = cat(outs, lambda r: r.ba_cost), cat(outs, lambda r: r.ba_window_xi)
+    n_kf = int(kf.sum())
+    if not bool(torch.isfinite(T).all()):
+        raise AssertionError("ba: non-finite pose")
+    if tuple(win_xi.shape) != (N_FRAMES, BA_WINDOW, 6):
+        raise AssertionError(f"ba: ba_window_xi of shape {tuple(win_xi.shape)}")
+    # The ring holds one keyframe at the start, so the window is full from
+    # promotion BA_WINDOW - 1 on, and BA runs on exactly those.
+    ran = cost[kf] >= 0
+    want = torch.arange(n_kf, device=dev) >= BA_WINDOW - 2
+    if not bool((ran == want).all()) or not bool(torch.isfinite(cost).all()) \
+            or not bool((cost[~kf] == -1.0).all()):
+        raise AssertionError(f"ba: ba_cost per promotion {cost[kf].tolist()}")
+    n_ba = int(ran.sum())
+    require_launched("mono_ba", launches, MONO_KERNELS, (cfg.pyramid.levels, N_FRAMES),
+                     mono=("fused", N_FRAMES, n_kf, 1))
+    ms_ba = [1e3 * elapsed / N_FRAMES]
+    ms_off = []
+    for cfg_x, ms in ((cfg, ms_off), (cfg, ms_off), (cfg_ba, ms_ba)):
+        out_x, elapsed_x, _ = run_path("mono_ba_turn", lambda: run(cfg_x, dev, N_FRAMES))
+        ms.append(1e3 * elapsed_x / N_FRAMES)
+        if cfg_x is cfg_ba and not (cat(out_x, lambda r: r.T_world)[:CPU_FRAMES]
+                                    - T[:CPU_FRAMES]).abs().max() <= POSE_TOL:
+            raise AssertionError("ba: the second run with BA gave other poses")
+    per_promotion = (statistics.mean(ms_ba) - statistics.mean(ms_off)) * N_FRAMES / n_ba
+    phase("ba", f"{N_FRAMES} frames with BA (window {BA_WINDOW}, {BA_ITERS} iterations): "
+                f"{n_kf} promotions, {n_ba} with BA, final costs "
+                f"{[round(c, 2) for c in cost[kf][ran].tolist()]}, launches {launches}; "
+                f"ms/frame with BA {ms_ba}, without {ms_off} (A, B, B, A): "
+                f"{per_promotion:.1f} ms of wall per promotion with BA on {card_line}")
+
+    # The first frames on the CPU, same noise and reset planes.
+    cpu = run(cfg_ba, "cpu", BA_CPU_FRAMES)
+    T_cpu, kf_cpu = cat(cpu, lambda r: r.T_world), cat(cpu, lambda r: r.is_keyframe)
+    cost_cpu = cat(cpu, lambda r: r.ba_cost)
+    n = BA_CPU_FRAMES
+    per_frame = (T[:n].cpu() - T_cpu).abs().flatten(1).max(dim=1).values
+    ba_frames = torch.nonzero(cost[:n].cpu() >= 0).flatten().tolist()
+    dT, dT_before = per_frame.max().item(), per_frame[:ba_frames[0]].max().item()
+    dT_first = per_frame[:ba_frames[1]].max().item()
+    same_kf = bool((kf[:n].cpu() == kf_cpu).all())
+    both = (cost[:n].cpu() >= 0) & (cost_cpu >= 0)
+    d_cost = ((cost[:n].cpu() - cost_cpu).abs() / cost_cpu.abs().clamp(min=1e-6))[both]
+    phase("ba", f"first {n} frames on the CPU: max |T_cuda - T_cpu| {dT_before:.3g} before the "
+                f"first BA (frame {ba_frames[0]}; tol {POSE_TOL}), at the BA frames "
+                f"{ba_frames}: {[float(f'{per_frame[i]:.3g}') for i in ba_frames]}, "
+                f"{dT_first:.3g} before the second (tol {BA_FIRST_TOL}), {dT:.3g} "
+                f"over all {n} (tol {BA_POSE_TOL}); keyframes equal: {same_kf}, ba_cost within "
+                f"{d_cost.max().item() if len(d_cost) else 0.0:.3g} relative")
+    if not same_kf or not dT_before <= POSE_TOL or not dT_first <= BA_FIRST_TOL \
+            or not dT <= BA_POSE_TOL or not bool(
+            ((cost[:n].cpu() >= 0) == (cost_cpu >= 0)).all()) or not len(d_cost):
+        raise AssertionError("ba: CUDA and CPU runs disagree")
+
+    # Host syncs per frame with BA on, from the state after the first chunk
+    # (ring full), inputs on the card; the frames must hold a promotion.
+    nxt = 1 + CHUNK
+    d_resets = resets[CHUNK:CHUNK + BA_SYNC_FRAMES].to(dev)
+    sync_out = []
+    syncs = count_syncs(lambda: sync_out.append(monocular_run(
+        mids[0], grays[nxt:nxt + BA_SYNC_FRAMES], masks[nxt:nxt + BA_SYNC_FRAMES], K, cfg_ba,
+        d_resets)[1]))
+    ba_in_window = int((sync_out[0].ba_cost >= 0).sum())
+    phase("ba", f"host syncs over {BA_SYNC_FRAMES} frames with {ba_in_window} BA promotions: "
+                f"{syncs} ({syncs / BA_SYNC_FRAMES:g} per frame)")
+    if syncs != BA_SYNC_FRAMES or ba_in_window == 0:
+        raise AssertionError("ba: expected one host sync per frame, BA promotions included")
+
+    # One bundle_adjust on the full ring's newest window: device ops, device
+    # busy and wall, targets batched and as the literal double loop, in turns.
+    K0 = _cull_chunk(cfg, K)[1]
+    window = ba.window_from_history(mids[0].history, K0, BA_WINDOW)
+    solve = {}
+    for name, batched in (("batched", True), ("loop", False), ("loop", False),
+                          ("batched", True)):
+        fn = lambda: ba.bundle_adjust(window, cfg_ba.ba, batch_targets=batched)
+        row = solve.setdefault(name, dict(wall_ms=[]))
+        row["wall_ms"].append(timed(fn, reps=3, warmup=1))
+        if "device_ops" not in row:
+            row["device_ops"], busy_us = device_profile(fn, 1, True)
+            row["device_busy_ms"] = busy_us / 1e3
+    a, b = (ba.bundle_adjust(window, cfg_ba.ba, batch_targets=x) for x in (True, False))
+    on_cpu = ba.bundle_adjust(ba.BAWindow(**{f.name: getattr(window, f.name).cpu()
+                                             for f in dataclasses.fields(window)}), cfg_ba.ba)
+    moved = (a.xi - window.xi).abs().max().item()
+    d_xi = (a.xi - b.xi).abs().max().item()
+    d_cost = ((a.costs - b.costs).abs() / b.costs).max().item()
+    d_xi_cpu = (a.xi.cpu() - on_cpu.xi).abs().max().item()
+    d_cost_cpu = ((a.costs.cpu() - on_cpu.costs).abs() / on_cpu.costs).max().item()
+    phase("ba", f"one bundle_adjust at {tuple(window.gray.shape)}: {solve}; the solve moves the "
+                f"twists by {moved:.3g}; batched vs loop: max |d xi| {d_xi:.3g}, costs within "
+                f"{d_cost:.3g} relative; card vs CPU on the same window: max |d xi| "
+                f"{d_xi_cpu:.3g} (tol {BA_SOLVE_TOL}), costs "
+                f"{[round(c, 2) for c in a.costs.tolist()]} within {d_cost_cpu:.3g} relative on "
+                f"{card_line}")
+    if not max(d_xi, d_xi_cpu) <= BA_SOLVE_TOL or not max(d_cost, d_cost_cpu) <= 5e-2:
+        raise AssertionError("ba: one solve differs between card and CPU, or batched and loop")
+    return dict(frames=N_FRAMES, promotions=n_kf, promotions_with_ba=n_ba,
+                ms_per_frame=dict(ba=ms_ba, off=ms_off), ms_per_promotion_with_ba=per_promotion,
+                cuda_vs_cpu_max_dT=dT, cuda_vs_cpu_frames=n, syncs_per_frame=syncs / BA_SYNC_FRAMES,
+                bundle_adjust=solve, batched_vs_loop_max_dxi=d_xi, card_vs_cpu_max_dxi=d_xi_cpu)
+
+
+def circle_graph(n=12, noise=0.02):
+    """A drifting circle with three exact closures (the rig of
+    ``tests/test_posegraph.py``): (true twists, drifted twists, i, j, z, w)."""
+    from dvo_tpu_torch.utils import oracle
+
+    rng = np.random.default_rng(SEED)
+    T = []
+    for k in range(n):
+        th = 2 * np.pi * k / n
+        c, s_ = np.cos(th), np.sin(th)
+        Tk = np.eye(4)
+        Tk[:3, :3] = [[c, -s_, 0], [s_, c, 0], [0, 0, 1]]
+        Tk[:2, 3] = [c, s_]
+        T.append(Tk)
+    rel = lambda a, b: oracle.se3_log(np.linalg.inv(T[a]) @ T[b])
+    zs = [rel(k, k + 1) + rng.standard_normal(6) * noise for k in range(n - 1)]
+    drift = [T[0]]
+    for z in zs:
+        drift.append(drift[-1] @ oracle.se3_exp(z))
+    pairs = [(n - 1, 0), (n - 2, 0), (n - 1, 1)]
+    i = np.array(list(range(n - 1)) + [a for a, _ in pairs])
+    j = np.array(list(range(1, n)) + [b for _, b in pairs])
+    z = np.stack(zs + [rel(a, b) for a, b in pairs]).astype(np.float32)
+    w = np.array([1.0] * (n - 1) + [20.0] * len(pairs), np.float32)
+    as_xi = lambda Ts: np.stack([oracle.se3_log(t) for t in Ts]).astype(np.float32)
+    return as_xi(T), as_xi(drift), i, j, z, w
+
+
+def posegraph_phase(dev, card_line, grays, K, cfg, by_path):
+    """The pose-graph solve on the card against the CPU, then the CLI with
+    ``--ba --pose-graph --pose-graph-every`` on both runner paths (phase 11
+    of the module docstring).  Returns its numbers."""
+    from dvo_tpu_torch.models import posegraph
+    from dvo_tpu_torch.utils import oracle
+
+    xi_true, xi0, i, j, z, w = circle_graph()
+    solve = lambda device: posegraph.optimize_pose_graph_padded(xi0, i, j, list(z), w,
+                                                                device=device)
+    xi_card, costs_card = solve(dev)
+    xi_cpu, costs_cpu = solve("cpu")
+    ate = lambda xi: float(np.sqrt(np.mean(np.sum(
+        (np.stack([oracle.se3_exp(x)[:3, 3] for x in xi]) - np.stack(
+            [oracle.se3_exp(x)[:3, 3] for x in xi_true])) ** 2, axis=-1))))
+    d_xi = float(np.abs(xi_card - xi_cpu).max())
+    d_cost = float(abs(costs_card[-1] - costs_cpu[-1]) / costs_cpu[-1])
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solve(dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    ops, busy_us = device_profile(lambda: solve(dev), 1, True)
+    phase("posegraph", f"solve of {len(xi0)} nodes, {len(w)} edges, 10 steps on the card vs the "
+                       f"CPU: max |d xi| {d_xi:.3g} (tol {PG_XI_TOL}), costs {costs_card[0]:.4g} "
+                       f"-> {costs_card[-1]:.4g} (CPU {costs_cpu[-1]:.4g}, tol {PG_COST_TOL} "
+                       f"relative), ATE {ate(xi0):.4f} "
+                       f"-> {ate(xi_card):.4f}; {statistics.median(walls):.1f} ms a solve, "
+                       f"{ops} device ops, device busy {busy_us / 1e3:.2f} ms on {card_line}")
+    if not np.isfinite(xi_card).all() or not d_xi <= PG_XI_TOL or not d_cost <= PG_COST_TOL \
+            or not costs_card[-1] < 0.01 * costs_card[0] or not ate(xi_card) < 0.75 * ate(xi0):
+        raise AssertionError("posegraph: the solve on the card is wrong")
+    summary = dict(solve=dict(nodes=len(xi0), edges=len(w), ms=statistics.median(walls),
+                              device_ops=ops, device_busy_ms=busy_us / 1e3,
+                              card_vs_cpu_max_dxi=d_xi))
+
+    # The CLI on a sequence that goes out over the first half of the frames
+    # and comes back over the same frames, so that keyframes revisit places.
+    half = N_FRAMES // 2
+    loop = torch.cat([grays[:half + 1], grays[:half].flip(0)]).cpu().numpy()
+    harvesters = []
+
+    class Capture(posegraph.PoseGraphHarvester):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            harvesters.append(self)
+
+    poses = {}
+    with tempfile.TemporaryDirectory() as root:
+        seq = write_sequence(os.path.join(root, "loop"), loop)
+        yaml = write_calib(os.path.join(root, "mono.yaml"), {"monocular": (K.cpu().numpy(), W, H)})
+        for chunk in (CLI_CHUNK, 0):
+            name = f"cli_mono_pg_chunk{chunk}"
+            with patched(posegraph, "PoseGraphHarvester", Capture):
+                got = cli_path(name, [
+                    "--data", seq, "--calib", yaml, "--mode", "mono", "--ba", "--pose-graph",
+                    "--pose-graph-every", str(PG_EVERY), "--chunk", str(chunk),
+                    "--out", os.path.join(root, f"{name}.txt")])
+            h = harvesters[-1]
+            ts, poses[chunk], _ = got["result"]
+            n = len(ts) - 1
+            launches = got["launches"]
+            by_path[name] = launches
+            tried, kfs = len(h._tried_pairs), len(h.nodes)
+            want = dict(framebuild=n + 1 + 2 * tried, gn_level=cfg.pyramid.levels * (n + tried),
+                        regularize_cull=n, epipolar=n - kfs, regularize=0, gn=0)
+            if not np.isfinite(poses[chunk]).all():
+                raise AssertionError(f"{name}: non-finite pose")
+            if {k: launches[k] for k in want} != want:
+                raise AssertionError(f"{name}: launches {launches}, expected {want} with "
+                                     f"{tried} closure re-tracks and {kfs} keyframes")
+            if len(h.e_w) < kfs - 1 or not h.closures <= tried:
+                raise AssertionError(f"{name}: {len(h.e_w)} edges over {kfs} nodes")
+            summary[name] = dict(
+                frames=n, ms_per_frame=1e3 * got["wall_s"] / n, nodes=kfs, edges=len(h.e_w),
+                ba_edges=sum(x == h.W_BA for x in h.e_w), closures_tried=tried,
+                closures_accepted=h.closures, live_refinements=h.live_refinements,
+                stale_snaps=h.stale_snaps, max_rel_corr_t=h.max_rel_corr_t, launches=launches)
+            phase("posegraph", f"{name}: {n} frames, {1e3 * got['wall_s'] / n:.2f} ms/frame, "
+                               f"{kfs} nodes, {len(h.e_w)} edges "
+                               f"({summary[name]['ba_edges']} from BA windows), closure "
+                               f"candidates re-tracked {tried}, accepted {h.closures}, live "
+                               f"refinements {h.live_refinements}, launches {launches} on "
+                               f"{card_line}")
+    dT = float(np.abs(poses[CLI_CHUNK] - poses[0]).max())
+    dT_first = float(np.abs(poses[CLI_CHUNK][:CPU_FRAMES] - poses[0][:CPU_FRAMES]).max())
+    summary["chunked_vs_per_frame_max_dT"] = dT
+    summary["chunked_vs_per_frame_first_frames_max_dT"] = dT_first
+    phase("posegraph", f"chunked vs per-frame refined trajectories: max |dT| {dT_first:.3g} "
+                       f"over the first {CPU_FRAMES} frames (tol {PG_CLI_TOL}), {dT:.3g} over all "
+                       f"(tol {PG_CLI_ALL_TOL})")
+    if not dT_first <= PG_CLI_TOL or not dT <= PG_CLI_ALL_TOL:
+        raise AssertionError("posegraph: the chunked and per-frame CLI runs disagree")
+    return summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -1348,6 +1709,12 @@ def main() -> None:
 
     def init(device):
         return monocular_init(grays[0], masks[0], K, cfg, device=device, noise=noise)
+
+    if "--back-end" in sys.argv[1:]:
+        by_path = {}
+        ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path)
+        posegraph_phase(dev, card_line, grays, K, cfg, by_path)
+        return
 
     # 3. kernels, on the state a warm-up run leaves (ring filled by promotions)
     warm, _ = monocular_run(init(dev), grays[1:1 + CHUNK], masks[1:1 + CHUNK], K, cfg,
@@ -1398,9 +1765,9 @@ def main() -> None:
     fb.update(kin_fb)
 
     # 4. main path
-    def mono_main():
+    def mono_main(n=N_FRAMES):
         state, outs = init(dev), []
-        for c in range(0, N_FRAMES, CHUNK):
+        for c in range(0, n, CHUNK):
             sl = slice(1 + c, 1 + c + CHUNK)
             state, res = monocular_run(state, grays[sl], masks[sl], K, cfg,
                                        resets[c:c + CHUNK].to(dev))
@@ -1474,14 +1841,15 @@ def main() -> None:
                   f"{by_path['mono_fields']} on {card_line}")
     gn_loops = {}
     ms_pair, by_path["mono_stepwise"], dT_step = paired_loops(
-        "mono", mono_main, N_FRAMES, lambda o: torch.cat([r.T_world for r in o]), first)
+        "mono", lambda: mono_main(STEPWISE_FRAMES), STEPWISE_FRAMES,
+        lambda o: torch.cat([r.T_world for r in o]), first, N_FRAMES)
     gn_loops["mono"] = dict(ms_per_frame=ms_pair, stepwise_vs_level_max_dT=dT_step[0],
                            stepwise_vs_level_first_frames_max_dT=dT_step[1],
                            **profiled_loops(profile_run, PROFILE_FRAMES, ms_pair))
     phase("main", f"level kernel vs stepwise loop (A, B, B, A): ms/frame {ms_pair}, "
                   f"stepwise poses within {dT_step[1]:.3g} of the level kernel's over the first "
-                  f"{CPU_FRAMES} frames (tol {POSE_TOL}) and {dT_step[0]:.3g} over all {N_FRAMES} "
-                  f"(the noise-bootstrapped depth map amplifies float noise); device ops per "
+                  f"{CPU_FRAMES} frames (tol {POSE_TOL}) and {dT_step[0]:.3g} over all "
+                  f"{STEPWISE_FRAMES} (the noise-bootstrapped depth map amplifies float noise); device ops per "
                   f"frame and idle share over {PROFILE_FRAMES} frames after the warm-up: "
                   f"{device_ops(gn_loops['mono'])}, "
                   f"stepwise launches {by_path['mono_stepwise']} on {card_line}")
@@ -1537,7 +1905,8 @@ def main() -> None:
     if not dT_r <= POSE_TOL:
         raise AssertionError("rgbd: CUDA and CPU runs disagree")
     ms_pair, by_path["rgbd_stepwise"], dT_step = paired_loops(
-        "rgbd", lambda: rgbd_main(dev, RGBD_FRAMES), RGBD_FRAMES, lambda o: o.T_world, first)
+        "rgbd", lambda: rgbd_main(dev, STEPWISE_FRAMES), STEPWISE_FRAMES, lambda o: o.T_world,
+        first, RGBD_FRAMES)
     gn_loops["rgbd"] = dict(ms_per_frame=ms_pair, stepwise_vs_level_max_dT=dT_step[0],
                            **profiled_loops(lambda: rgbd_main(dev, PROFILE_FRAMES),
                                               PROFILE_FRAMES, ms_pair))
@@ -1587,6 +1956,11 @@ def main() -> None:
     cli = cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_path,
                     resets)
 
+    # 10, 11. the back end
+    back_end = dict(
+        ba=ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path),
+        posegraph=posegraph_phase(dev, card_line, grays, K, cfg, by_path))
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     _, ms, plain_ms = fb[rgbd_label]
@@ -1596,8 +1970,9 @@ def main() -> None:
              max_abs_err=max(v[0] for v in fb.values()), ms=ms, plain_ms=plain_ms, **fb_device,
              ms_by_shape={k: v[1] for k, v in fb.items()},
              plain_ms_by_shape={k: v[2] for k, v in fb.items()}), *fb_work))
-    frames_by_path = {"mono": N_FRAMES, "rgbd": RGBD_FRAMES, "mono_stepwise": N_FRAMES,
-                      "rgbd_stepwise": RGBD_FRAMES, "mono_fields": N_FRAMES}
+    frames_by_path = {"mono": N_FRAMES, "rgbd": RGBD_FRAMES, "mono_stepwise": STEPWISE_FRAMES,
+                      "rgbd_stepwise": STEPWISE_FRAMES, "mono_fields": N_FRAMES,
+                      "mono_ba": N_FRAMES}
     for k in kernels:
         if "times_by_shape" in k:
             times = k.pop("times_by_shape")
@@ -1624,7 +1999,7 @@ def main() -> None:
                       "epipolar_lanes": lanes_rows,
                       "ms_per_frame": ms_frame, "rgbd_ms_per_frame": ms_rgbd,
                       "syncs_per_frame": {"mono": syncs_mono / n, "rgbd": syncs_rgbd / n},
-                      "cli": cli, "card": card_line}))
+                      "cli": cli, "back_end": back_end, "card": card_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

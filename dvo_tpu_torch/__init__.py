@@ -12,9 +12,11 @@ mirror ``dvo_tpu`` so each module's counterpart is easy to find:
   dvo_tpu_torch.ops.cuda  — the five kernels (GN step, GN level loop, epipolar,
                             regularize, frame build), each with its plain
                             PyTorch version, a launch count and its work()
-  dvo_tpu_torch.models    — frame, keyframe ring, tracker, mapper, odometry
+  dvo_tpu_torch.models    — frame, keyframe ring, tracker, mapper, odometry,
+                            windowed bundle adjustment, pose graph
   dvo_tpu_torch.utils     — runners, datasets, trajectory, metrics, checkpoints,
-                            streams, visualisation
+                            streams, visualisation, the NumPy oracle, the
+                            dataset recorder
   dvo_tpu_torch.native    — C++ PNG decode, remap and prefetch loader
 
 Every kernel wrapper runs the kernel for a CUDA tensor (or raises) and the

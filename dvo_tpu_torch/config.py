@@ -173,8 +173,8 @@ class InitConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BAConfig:
-    """Windowed photometric bundle adjustment (no reference counterpart; not
-    ported yet — ``enabled=True`` is refused by the port's entry points)."""
+    """Windowed photometric bundle adjustment on keyframe promotion
+    (``models/ba``; no reference counterpart)."""
 
     enabled: bool = False
     window: int = 7                   # keyframes per BA window

@@ -5,6 +5,13 @@ xi = [v; w] with translation first, ``compose(a, b) = log(exp(a) exp(b))``.
 Every small-angle branch is a ``torch.where`` over guarded denominators, so
 no function reads a tensor value on the host; all accept arbitrary leading
 batch dimensions.
+
+The chain differentiates as ``dvo_tpu.lie`` does (the pose graph takes the
+Jacobian of ``se3_log`` of a product of ``se3_exp``s, in forward or reverse
+mode): the operand of every untaken ``where`` branch is replaced by a safe
+one, so no branch feeds an infinite or NaN derivative into the selected
+one, and ``so3_log``'s zero value below the threshold keeps the derivative
+of the exact branch.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ def hat(w: torch.Tensor) -> torch.Tensor:
 
 
 def _theta(w: torch.Tensor) -> torch.Tensor:
+    """Rotation angle, (..., 3) -> (...); the floor keeps the square root's
+    derivative finite at w = 0."""
     return torch.sqrt(torch.sum(w * w, dim=-1) + 1e-24)
 
 
@@ -48,8 +57,10 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) -> (..., 3).  Below 1e-6 rad the value is exactly zero,
-    as in the reference and ``dvo_tpu.lie.so3_log`` (whose stop-gradient
-    trick only shapes a derivative; nothing here differentiates)."""
+    as in the reference and ``dvo_tpu.lie.so3_log``, and the derivative is
+    that of the exact branch, ``0.5 * vee`` (``x - x.detach()`` is 0 with
+    the derivative of x): a constant zero there would give the pose graph a
+    zero rotation block at every exactly consistent edge."""
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     cos_th = torch.clamp((trace - 1.0) * 0.5, -1.0 + 1e-7, 1.0)
     th = torch.arccos(cos_th)
@@ -62,9 +73,14 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     small = th < _SMALL
-    ths = torch.where(small, 1.0, th)
+    # arccos has an infinite derivative at cos = 1 (the identity), and
+    # reverse mode multiplies it by the where's zero: the angle that the
+    # exact branch differentiates is taken at a cosine moved off 1 wherever
+    # that branch is not selected.  Its value where selected is th's.
+    ths = torch.where(small, 1.0, torch.arccos(torch.where(small, 0.0, cos_th)))
     scale = torch.where(small, 0.5, ths / (2.0 * torch.sin(ths)))[..., None]
-    return torch.where(small[..., None], 0.0, scale * vee)
+    out = scale * vee
+    return torch.where(small[..., None], out - out.detach(), out)
 
 
 def _v_coeffs(w: torch.Tensor):
@@ -120,9 +136,26 @@ def compose(xi0: torch.Tensor, xi1: torch.Tensor) -> torch.Tensor:
     return se3_log(se3_exp(xi0) @ se3_exp(xi1))
 
 
+def inverse(xi: torch.Tensor) -> torch.Tensor:
+    """Twist of the inverse transform: -xi (exp(-xi) = exp(xi)^-1)."""
+    return -xi
+
+
 def transform(T: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) to points (..., 3): R x + t."""
     return (T[..., :3, :3] @ x[..., None])[..., 0] + T[..., :3, 3]
+
+
+def invert_T(T: torch.Tensor) -> torch.Tensor:
+    """Rigid inverse [R^T | -R^T t] of (..., 4, 4) transforms (the
+    reference's ``inversePose``, convert.cpp:31-39, omits the rotation of t
+    and is used only for display)."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    out = torch.zeros_like(T)
+    out[..., :3, :3] = Rt
+    out[..., :3, 3] = -(Rt @ T[..., :3, 3:])[..., 0]
+    out[..., 3, 3].fill_(1.0)
+    return out
 
 
 def is_finite_xi(xi: torch.Tensor) -> torch.Tensor:

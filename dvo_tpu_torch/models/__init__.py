@@ -1,1 +1,2 @@
-"""Frame, keyframe ring, tracker, mapper and the monocular odometry driver."""
+"""Frame, keyframe ring, tracker, mapper, the odometry drivers, windowed
+bundle adjustment and the pose graph."""

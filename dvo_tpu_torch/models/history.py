@@ -95,6 +95,18 @@ def refresh_head(history: KeyframeHistory, frame: Frame) -> KeyframeHistory:
     )
 
 
+def write_back(history: KeyframeHistory, slots, xi, depth) -> KeyframeHistory:
+    """Write bundle-adjusted world poses and depth maps into ring slots:
+    ``slots`` a list of M ints (``ba.window_slots``), ``xi`` (M, 6),
+    ``depth`` (M, H, W).  The writes go into copies of the stacks, one
+    indexed copy per slot, and read nothing back to the host."""
+    new_xi, new_depth = history.xi.clone(), history.depth.clone()
+    for a, slot in enumerate(slots):
+        new_xi[slot] = xi[a]
+        new_depth[slot] = depth[a]
+    return dataclasses.replace(history, xi=new_xi, depth=new_depth)
+
+
 def born_slot(history: KeyframeHistory, age: torch.Tensor) -> torch.Tensor:
     """Ring slot of the keyframe ``age`` promotions before the newest;
     ages beyond the live window clamp to the oldest retained keyframe."""

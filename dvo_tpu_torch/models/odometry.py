@@ -32,6 +32,7 @@ import torch
 
 from dvo_tpu_torch import lie
 from dvo_tpu_torch.config import DVOConfig
+from dvo_tpu_torch.models.ba import bundle_adjust, window_from_history, window_slots
 from dvo_tpu_torch.models.frame import (
     Frame,
     Scene,
@@ -43,7 +44,7 @@ from dvo_tpu_torch.models.frame import (
     with_pose,
     with_regularized_depth,
 )
-from dvo_tpu_torch.models.history import KeyframeHistory, push, refresh_head
+from dvo_tpu_torch.models.history import KeyframeHistory, push, refresh_head, write_back
 from dvo_tpu_torch.models.mapper import (
     DepthUpdateStats,
     depth_update,
@@ -75,18 +76,18 @@ class StepResult:
     tracking: TrackResult
     mapping: DepthUpdateStats
     ba_cost: torch.Tensor        # () final windowed-BA cost; -1 when BA did not run
-    ba_window_xi: torch.Tensor   # (0, 6): BA is not ported, so it never runs
+    # (window, 6): the window's refined poses when this step ran BA (ba_cost
+    # >= 0), zeros otherwise; (0, 6) when cfg.ba.enabled is False.  The
+    # pose-graph harvester builds its BA edges from these rows: the ring's xi
+    # at a chunk's end has been rewritten by later promotions.
+    ba_window_xi: torch.Tensor
 
 
-def _no_ba(device):
-    """``StepResult``'s BA fields as ``dvo_tpu`` fills them with BA off."""
+def _no_ba(device, window: int = 0):
+    """``StepResult``'s BA fields of a step on which BA did not run
+    (``window``: ``cfg.ba.window`` when BA is enabled, else 0)."""
     return dict(ba_cost=torch.full((), -1.0, dtype=torch.float32, device=device),
-                ba_window_xi=torch.zeros((0, 6), dtype=torch.float32, device=device))
-
-
-def _check_cfg(cfg: DVOConfig) -> None:
-    if cfg.ba.enabled:
-        raise NotImplementedError("bundle adjustment is not ported to dvo_tpu_torch yet")
+                ba_window_xi=torch.zeros((window, 6), dtype=torch.float32, device=device))
 
 
 def _generator(device, seed: int) -> torch.Generator:
@@ -115,7 +116,6 @@ def monocular_init(gray, mask, K, cfg: DVOConfig = DVOConfig.monocular(), *,
     The state lives on ``device``, and every later step runs there: the
     card by default (without one the call raises; it never runs on the CPU
     unasked), ``device="cpu"`` for the plain versions."""
-    _check_cfg(cfg)
     gray, mask, K = (torch.as_tensor(x, device=device) for x in (gray, mask, K))
     if noise is not None:
         noise = torch.as_tensor(noise, device=gray.device)
@@ -135,7 +135,6 @@ def monocular_init_with_depth(gray, mask, depth, sigma, K,
     ``generator`` (default: a new one seeded 0 on ``device``) draws the
     reset planes that are not passed in.  ``device`` as in
     ``monocular_init``: the card unless ``"cpu"`` is asked for."""
-    _check_cfg(cfg)
     gray, mask, depth, sigma, K = (torch.as_tensor(x, device=device)
                                    for x in (gray, mask, depth, sigma, K))
     frame = build_frame_with_depth(gray, mask, depth, sigma, K, cfg.pyramid.levels,
@@ -149,7 +148,6 @@ def monocular_step(state: VOState, gray, mask, K, cfg: DVOConfig = DVOConfig.mon
     """One frame: track -> pose -> map -> regularize.  ``reset_depth`` is
     the depth filter's reset plane at the base level; drawn from the
     state's generator when absent.  Returns (state', StepResult)."""
-    _check_cfg(cfg)
     device = state.ref.xi.device
     gray, mask, K = (torch.as_tensor(x, device=device) for x in (gray, mask, K))
     frame = build_tracking_frame(gray, mask, K, cfg.pyramid.levels, cfg.pyramid.culls,
@@ -168,14 +166,30 @@ def monocular_step(state: VOState, gray, mask, K, cfg: DVOConfig = DVOConfig.mon
     # --- mapping (mapper.cpp:16-33): the step's one host sync ---
     need_kf = bool(need_new_keyframe(tr.xi, frame.frame_id, state.ref.frame_id, cfg.mapper))
     base = state.ref.base
+    ba = _no_ba(device, cfg.ba.window if cfg.ba.enabled else 0)
     if need_kf:
         d, s, age = propagate(base.depth, base.sigma, state.ref.age, frame.relative_xi,
                               base.K, cfg.mapper, cfg.init)
         ref = with_gradients(frame)
         # The ring keeps the new keyframe's base level as propagated, before
         # the regulariser; push reads no other level, so none is culled here.
+        # refresh_head first: the outgoing keyframe's slot gets its current
+        # maps, so that the BA window reads them.
         history = push(refresh_head(state.history, state.ref), with_base_depth(ref, d, s))
         stats = DepthUpdateStats.zero(device)
+        if cfg.ba.enabled and history.count >= cfg.ba.window:
+            # Windowed BA on promotion: refine the newest ``window`` keyframe
+            # poses and depth maps, write them back into the ring, and carry
+            # the newest entry (this frame) into the new reference: its
+            # depth goes on to the regulariser, sigma and age unchanged.
+            # ``count`` is a host int, so the branch reads nothing back.
+            res = bundle_adjust(window_from_history(history, ref.base.K, cfg.ba.window),
+                                cfg.ba)
+            history = write_back(history, window_slots(history, cfg.ba.window), res.xi,
+                                 res.depth)
+            d = res.depth[-1]
+            ref = dataclasses.replace(ref, xi=res.xi[-1])
+            ba = dict(ba_cost=res.costs[-1], ba_window_xi=res.xi)
     else:
         if reset_depth is None:
             reset_depth = draw_reset_depth(base.shape, cfg.mapper.depth_filter,
@@ -198,12 +212,14 @@ def monocular_step(state: VOState, gray, mask, K, cfg: DVOConfig = DVOConfig.mon
         vel=vel,
     )
     result = StepResult(
-        T_world=lie.se3_exp(frame.xi),
+        # A promoted frame is the new reference, whose pose BA may have
+        # refined: that pose is the one emitted.
+        T_world=lie.se3_exp(ref.xi if need_kf else frame.xi),
         relative_xi=tr.xi,
         is_keyframe=torch.full((), need_kf, dtype=torch.bool, device=device),
         tracking=tr,
         mapping=stats,
-        **_no_ba(device),
+        **ba,
     )
     return new_state, result
 

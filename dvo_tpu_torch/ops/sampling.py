@@ -39,21 +39,6 @@ def clipped_corners(x0, y0, w: int, h: int):
     )
 
 
-def bilinear_dense(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
-    """getSubpixelFromDense semantics.  img: (H, W).  Returns (values,
-    valid) where valid is the base corner's in-range flag."""
-    h, w = img.shape[-2], img.shape[-1]
-    x0, y0, fx, fy, in0, in_x1, in_y1 = corners(x, y, w, h)
-    x0c, x1c, y0c, y1c = clipped_corners(x0, y0, w, h)
-    g00 = img[y0c, x0c]
-    g10 = torch.where(in_x1, img[y0c, x1c], g00)
-    g01 = torch.where(in_y1, img[y1c, x0c], g00)
-    g11 = torch.where(in_x1 & in_y1, img[y1c, x1c], g00)
-    top = g00 * (1.0 - fx) + g10 * fx
-    bot = g01 * (1.0 - fx) + g11 * fx
-    return top * (1.0 - fy) + bot * fy, in0
-
-
 def _pick(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """``img[yi, xi]``; an (N, H, W) stack is indexed per leading entry of
     the (N, ...) coordinates (the batch axis ``jax.vmap`` would add)."""
@@ -61,6 +46,22 @@ def _pick(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor
         return img[yi, xi]
     b = torch.arange(img.shape[0], device=img.device).view(-1, *([1] * (yi.dim() - 1)))
     return img[b, yi, xi]
+
+
+def bilinear_dense(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """getSubpixelFromDense semantics.  img: (H, W) or, with (N, ...)
+    coordinates, an (N, H, W) stack.  Returns (values, valid) where valid
+    is the base corner's in-range flag."""
+    h, w = img.shape[-2], img.shape[-1]
+    x0, y0, fx, fy, in0, in_x1, in_y1 = corners(x, y, w, h)
+    x0c, x1c, y0c, y1c = clipped_corners(x0, y0, w, h)
+    g00 = _pick(img, y0c, x0c)
+    g10 = torch.where(in_x1, _pick(img, y0c, x1c), g00)
+    g01 = torch.where(in_y1, _pick(img, y1c, x0c), g00)
+    g11 = torch.where(in_x1 & in_y1, _pick(img, y1c, x1c), g00)
+    top = g00 * (1.0 - fx) + g10 * fx
+    bot = g01 * (1.0 - fx) + g11 * fx
+    return top * (1.0 - fy) + bot * fy, in0
 
 
 def bilinear_masked(img: torch.Tensor, mask: torch.Tensor, x: torch.Tensor, y: torch.Tensor):

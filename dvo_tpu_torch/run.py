@@ -8,15 +8,15 @@ Examples:
         --out traj.txt --max-frames 100
     python -m dvo_tpu_torch.run --data /path/to/tum/fr1_xyz --mode rgbd \\
         --format tum --out traj.txt --gt groundtruth.txt
-
-Not ported yet (ROADMAP queue 1): ``--ba`` (bundle adjustment) and
-``--pose-graph``; both are refused.
+    python -m dvo_tpu_torch.run --data /path/to/logicool0 --mode mono --ba \\
+        --pose-graph --pose-graph-every 4 --out traj.txt
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -62,16 +62,22 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint", default=None,
                     help="save the final VO state (.npz, dvo_tpu's keys) here (mono mode)")
     ap.add_argument("--ba", action="store_true",
-                    help="windowed bundle adjustment: not ported yet (refused)")
+                    help="run windowed bundle adjustment on every keyframe "
+                         "promotion (mono mode)")
     ap.add_argument("--ba-window", type=int, default=4,
-                    help="BA window size in keyframes (with --ba)")
+                    help="BA window size in keyframes (<= history capacity)")
     ap.add_argument("--ba-iters", type=int, default=5,
-                    help="BA Gauss-Newton iterations per window (with --ba)")
+                    help="BA Gauss-Newton iterations per window")
     ap.add_argument("--pose-graph", action="store_true",
-                    help="global pose-graph refinement: not ported yet (refused)")
+                    help="global pose-graph refinement over the keyframe "
+                         "trajectory at sequence end (odometry + BA-window + "
+                         "re-tracked loop-closure constraints; mono mode)")
     ap.add_argument("--pose-graph-every", type=int, default=0,
-                    help="live pose-graph refinement every K promotions: not ported yet "
-                         "(refused when not 0)")
+                    help="with --pose-graph: additionally refine every K "
+                         "keyframe promotions and write the corrections "
+                         "back into the live keyframe ring, so mid-run "
+                         "drift repairs the mapping geometry as it happens "
+                         "(0 = refine only at sequence end)")
     ap.add_argument("--plot", default=None,
                     help="write a trajectory PNG (needs matplotlib)")
     ap.add_argument("--gallery", default=None,
@@ -106,13 +112,6 @@ def _trace(directory: str, cuda: bool):
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.ba:
-        raise SystemExit("--ba: bundle adjustment is not ported to dvo_tpu_torch yet "
-                         "(ROADMAP queue 1, 'BA'); run python -m dvo_tpu.run for it")
-    if args.pose_graph or args.pose_graph_every:
-        raise SystemExit("--pose-graph: the pose graph is not ported to dvo_tpu_torch yet "
-                         "(ROADMAP queue 1, 'The pose graph'); run python -m dvo_tpu.run "
-                         "for it")
 
     import torch
 
@@ -142,6 +141,10 @@ def main(argv=None):
     # there (the kinect modes carry metric depth).
     ate_with_scale = args.mode == "mono" and args.format != "kinect"
     cfg_mono = DVOConfig.monocular()
+    if args.ba:
+        cfg_mono = dataclasses.replace(
+            cfg_mono, ba=dataclasses.replace(cfg_mono.ba, enabled=True, window=args.ba_window,
+                                             iterations=args.ba_iters))
     trace_ctx = (_trace(args.trace, args.device == "cuda") if args.trace
                  else contextlib.nullcontext())
 
@@ -196,6 +199,7 @@ def main(argv=None):
                     seq, calib, cfg_mono, seed=args.seed, max_frames=args.max_frames,
                     undistort=not args.no_undistort, verbose=args.verbose, metrics=metrics,
                     checkpoint_out=args.checkpoint, gallery_out=args.gallery,
+                    pose_graph=args.pose_graph, pose_graph_every=args.pose_graph_every,
                     chunk=args.chunk, device=device,
                 )
             else:

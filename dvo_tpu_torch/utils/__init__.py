@@ -1,3 +1,4 @@
 """Host-side runners of the port: sequence runners, dataset parsing and
-calibration, trajectories, metrics, checkpoints, live streams and the
-visualisations (the native decoder is ``dvo_tpu_torch.native``)."""
+calibration, trajectories, metrics, checkpoints, live streams, the
+visualisations, the dataset recorder and the scalar NumPy oracle (the native
+decoder is ``dvo_tpu_torch.native``)."""

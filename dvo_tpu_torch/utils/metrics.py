@@ -44,6 +44,33 @@ def device_sync(x) -> None:
         torch.cuda.synchronize(x.device)
 
 
+def fetch_start(t: torch.Tensor):
+    """Start copying ``t`` to the host without blocking: a CUDA tensor goes
+    into pinned memory with an event recorded behind the copy (a copy into
+    pageable memory would wait for the device).  Returns (host tensor,
+    event or None); read the host tensor only after ``fetch_wait``."""
+    if not t.is_cuda:
+        return t.detach(), None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t.detach(), non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def fetch_wait(host: torch.Tensor, done) -> np.ndarray:
+    """Wait for ``fetch_start``'s copy, and for nothing enqueued after it;
+    returns the host copy as numpy."""
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
+
+
+def fetch(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as numpy, through pinned memory on CUDA."""
+    return fetch_wait(*fetch_start(t))
+
+
 class Timer:
     """Wall-clock context timer (reference core/timer.hpp).  ``ms`` is valid
     after exit; pass ``sync`` (a tensor) to wait for the device before the

@@ -27,6 +27,13 @@ the RGB-D paths nothing inside a chunk's dispatch waits for the device; the
 monocular step still reads its keyframe decision once per frame
 (``models/odometry.py``), so there only the decode threads overlap.
 
+Pose graph (``run_monocular(pose_graph=True)``).  On the per-frame path the
+harvester sees every step's result and state.  On the chunked path it sees
+the drained rows, the chunk's own host frames and one packed copy of the
+keyframe ring per chunk, which rides the same pinned, event-gated copy as
+the results (``_ChunkedHarvest``); a live refinement reaches the device
+state two chunks after the promotion that triggered it.
+
 Randomness: ``seed`` seeds the ``torch.Generator`` on the run's device that
 draws the monocular bootstrap noise and the depth-filter reset planes.
 Torch cannot replay ``jax.random``, so a monocular trajectory differs from
@@ -44,7 +51,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dvo_tpu_torch import lie
 from dvo_tpu_torch.config import DVOConfig
+from dvo_tpu_torch.models import posegraph
 from dvo_tpu_torch.models.odometry import (
     monocular_init,
     monocular_init_with_depth,
@@ -64,7 +73,14 @@ from dvo_tpu_torch.utils.datasets import (
     decode_gray,
     remap_nearest,
 )
-from dvo_tpu_torch.utils.metrics import device_sync, tree_map
+from dvo_tpu_torch.utils.metrics import (
+    device_sync,
+    fetch,
+    fetch_start,
+    fetch_wait,
+    to_numpy,
+    tree_map,
+)
 
 _MASK_ERROR = ("chunked path requires a constant validity mask (it is shipped once); "
                "got a frame-varying mask")
@@ -120,23 +136,20 @@ class _ChunkDrain:
     memory and records an event behind it, then consumes the PREVIOUS
     chunk's rows — so the device runs chunk k+1 while the host walks chunk
     k's.  ``_consume`` waits on its chunk's event and on nothing earlier.
-    ``finish`` drains the last chunk."""
+    ``finish`` drains the last chunk.  ``aux`` (optional, a device tensor:
+    the pose-graph harvester's snapshot of the keyframe ring) rides the same
+    kind of copy and comes back as numpy in ``on_chunk_done(first_index,
+    count, aux)``, called once a chunk's rows are consumed."""
 
-    def __init__(self, on_frame):
+    def __init__(self, on_frame, on_chunk_done=None):
         self._on_frame = on_frame   # on_frame(step_index, result_row)
+        self._on_chunk_done = on_chunk_done
         self._pending = None
 
-    def push(self, res, first_index: int, count: int) -> None:
-        flat = _flatten_results(res)
-        done = None
-        if flat.is_cuda:
-            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-            host.copy_(flat, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            host = flat
-        prev, self._pending = self._pending, (res, host, done, first_index, count)
+    def push(self, res, first_index: int, count: int, aux=None) -> None:
+        flat = fetch_start(_flatten_results(res))
+        aux = None if aux is None else fetch_start(aux)
+        prev, self._pending = self._pending, (res, flat, aux, first_index, count)
         if prev is not None:
             self._consume(*prev)
 
@@ -145,12 +158,13 @@ class _ChunkDrain:
             pending, self._pending = self._pending, None
             self._consume(*pending)
 
-    def _consume(self, res, host, done, first_index, count) -> None:
-        if done is not None:
-            done.synchronize()
-        rows = _unflatten_results(res, host.numpy())
+    def _consume(self, res, flat, aux, first_index, count) -> None:
+        rows = _unflatten_results(res, fetch_wait(*flat))
         for k in range(count):
             self._on_frame(first_index + k, tree_map(lambda a: a[k], rows))
+        if self._on_chunk_done is not None:
+            self._on_chunk_done(first_index, count,
+                                None if aux is None else fetch_wait(*aux))
 
 
 class _Staging:
@@ -188,14 +202,20 @@ class _Staging:
         return out
 
 
-def _run_chunks(n_steps, chunk, staging, fill_row, dispatch, on_frame):
+def _run_chunks(n_steps, chunk, staging, fill_row, dispatch, on_frame, on_chunk_done=None,
+                make_aux=None, before_dispatch=None):
     """Drive ``n_steps // chunk`` full chunks: fill a staging set from the
     (prefetching) stream, upload it, dispatch the chunk (``dispatch(device
     tensors)`` returns its stacked results) and consume the previous
     chunk's results.  Returns (steps consumed, per-chunk wall seconds); the
     first chunk's wall carries the one-time costs (CUDA context, the
-    kernels' build), and the caller runs the tail per frame."""
-    drain = _ChunkDrain(on_frame)
+    kernels' build), and the caller runs the tail per frame.
+
+    The pose graph's hooks: ``before_dispatch()`` runs just before each
+    chunk's dispatch (where a live refinement's corrections reach the device
+    state); ``make_aux()`` just after it (its device tensor rides the drain
+    and comes back in ``on_chunk_done``: the chunk's ring snapshot)."""
+    drain = _ChunkDrain(on_frame, on_chunk_done)
     done = 0
     chunk_walls = []
     t_prev = time.perf_counter()
@@ -203,7 +223,10 @@ def _run_chunks(n_steps, chunk, staging, fill_row, dispatch, on_frame):
         bufs = staging.acquire()
         for k in range(chunk):
             fill_row(bufs, k)
-        drain.push(dispatch(staging.upload()), done, chunk)
+        if before_dispatch is not None:
+            before_dispatch()
+        res = dispatch(staging.upload())
+        drain.push(res, done, chunk, make_aux() if make_aux is not None else None)
         done += chunk
         t_now = time.perf_counter()
         chunk_walls.append(t_now - t_prev)
@@ -318,9 +341,8 @@ class _Trajectory:
         self.times = [items[0].timestamp]
         self.secs = []
 
-    def _record(self, fi, row, sec, suffix) -> None:
-        T = row.T_world
-        self.poses.append(T.cpu().numpy() if isinstance(T, torch.Tensor) else np.asarray(T))
+    def _record(self, fi, row, sec, suffix, pose=None) -> None:
+        self.poses.append(to_numpy(row.T_world) if pose is None else pose)
         self.times.append(self._items[fi].timestamp)
         if self._metrics is not None:
             self._metrics.log_frame(row, sec, self._items[fi].timestamp)
@@ -329,18 +351,20 @@ class _Trajectory:
                   if self._mono else "")
             print(f"frame {fi:4d}{kf} {suffix}")
 
-    def chunked(self, chunk, staging, fill_row, dispatch) -> int:
+    def chunked(self, chunk, staging, fill_row, dispatch, pose_of=None, **hooks) -> int:
         """``_run_chunks`` over the steps after frame 0, every row
         recorded with the mean seconds so far; returns the first frame
-        left for the per-frame tail."""
+        left for the per-frame tail.  ``pose_of(step_index, row)`` gives
+        the pose to emit instead of the row's (the pose graph's corrected
+        one); ``hooks`` are ``_run_chunks``'s."""
         t_sec = time.perf_counter()
 
         def on_frame(step_idx, row):
             self._record(1 + step_idx, row, (time.perf_counter() - t_sec) / (step_idx + 1),
-                         "(chunked)")
+                         "(chunked)", None if pose_of is None else pose_of(step_idx, row))
 
         done, chunk_walls = _run_chunks(len(self._items) - 1, chunk, staging, fill_row,
-                                        dispatch, on_frame)
+                                        dispatch, on_frame, **hooks)
         self.secs.extend(cw / chunk for cw in chunk_walls for _ in range(chunk))
         return 1 + done
 
@@ -352,10 +376,109 @@ class _Trajectory:
         device_sync(res.T_world)
         self.secs.append(time.perf_counter() - t0)
         self._record(fi, res, self.secs[-1], f"{self.secs[-1] * 1e3:7.1f} ms")
+        self.last_result = res
         return state
 
     def result(self):
         return np.asarray(self.times), np.stack(self.poses), np.asarray(self.secs)
+
+
+class _ChunkedHarvest:
+    """The pose graph on the chunked path.  Constraints are harvested from
+    the drained ``StepResult`` rows; keyframe gray snapshots are the chunk's
+    own host rows; the retiring keyframes' refined depth and sigma come from
+    one packed ring fetch per chunk, which rides the drain's pinned copy
+    behind the next chunk's execution.  A live refinement
+    (``pose_graph_every``) reaches the device state two chunks after the
+    promotion that triggered it (results drain one chunk behind); the rows
+    emitted in between are corrected afterwards, so that the final
+    ``apply_refinement`` sees one consistent chain (``corr_records``: frames
+    in [from_frame, effective_frame) were composed from the reference before
+    its correction)."""
+
+    def __init__(self, harvester, out: "_Trajectory", chunk: int, mask_full, capacity: int,
+                 shape):
+        self.harvester, self._out, self._chunk = harvester, out, chunk
+        self._mask_full, self._cap, self._shape = mask_full, capacity, shape
+        self._corr_records = []    # (from_frame, effective_frame, corr 4x4)
+        self._pending_corr = []    # refinements waiting for the device state
+        self._chunk_grays = {}     # first step index -> host uint8 rows
+        self._refine_due = False
+        self._dispatched = 0
+        self.filling = None        # the staging rows being filled (set by the runner)
+
+    def keep_grays(self) -> None:
+        """Keep the host rows of the chunk about to be dispatched (a copy:
+        the staging set is refilled two chunks later)."""
+        self._chunk_grays[self._dispatched * self._chunk] = self.filling.copy()
+        self._dispatched += 1
+
+    @staticmethod
+    def pack_ring(history) -> torch.Tensor:
+        """Depth, sigma and ``kf_id`` of the ring in one float32 vector
+        (frame ids are exact far below 2**24): ``kf_id`` lets
+        ``absorb_ring`` find the slots overwritten between a retirement and
+        this fetch."""
+        return torch.cat([history.depth.reshape(-1), history.sigma.reshape(-1),
+                          history.kf_id.to(torch.float32)])
+
+    def absorb(self, ring: np.ndarray) -> None:
+        n = self._cap * self._shape[0] * self._shape[1]
+        self.harvester.absorb_ring(ring[:n].reshape(self._cap, *self._shape),
+                                   ring[n:2 * n].reshape(self._cap, *self._shape),
+                                   ring[2 * n:].astype(np.int64))
+
+    def pose_of(self, step_idx: int, row):
+        """The pose to emit for a drained row, and the harvest of a
+        keyframe row."""
+        fi = 1 + step_idx
+        T = np.asarray(row.T_world)
+        for first, effective, corr in self._corr_records:
+            if first <= fi < effective:
+                T = corr @ T
+        if bool(row.is_keyframe):
+            first = (step_idx // self._chunk) * self._chunk
+            due = self.harvester.on_chunk_row(fi, row, self._chunk_grays[first][step_idx - first],
+                                              self._mask_full, T_emit=T)
+            self._refine_due = self._refine_due or due
+        return T
+
+    def on_chunk_done(self, first_index: int, count: int, ring) -> None:
+        self._chunk_grays.pop(first_index, None)
+        self.absorb(ring)
+        if self._refine_due:
+            self._refine_due = False
+            refined = self.harvester.refine_live_chunked()
+            if refined is not None:
+                self._pending_corr.append(refined)
+
+    def apply_pending(self, state):
+        """Write the refinements that are waiting into ``state`` (ring and
+        reference) and into the rows already emitted; returns the state."""
+        nodes, poses = self.harvester.nodes, self._out.poses
+        for xi_ref, corr in self._pending_corr:
+            m_nodes = len(xi_ref)
+            xi_slot = np.zeros((self._cap, 6), np.float32)
+            id_slot = np.full((self._cap,), -2, np.int32)
+            # Node k is ring push k+1 (push 0 is the first keyframe), in
+            # slot push % capacity.
+            for k in range(max(0, m_nodes - self._cap), m_nodes):
+                slot = (k + 1) % self._cap
+                xi_slot[slot] = xi_ref[k]
+                id_slot[slot] = nodes[k].frame_idx
+            max_id = nodes[m_nodes - 1].frame_idx
+            state = posegraph.apply_live_correction(state, xi_slot, id_slot, max_id, corr)
+            # Rows already drained on the old chain (the refined keyframe's
+            # own and those after it) are corrected in place: the final
+            # apply_refinement trusts inv(poses[kf]) @ poses[f] as tracked
+            # motion and would otherwise apply the correction twice to what
+            # follows (corr @ T_old(kf) == T_new(kf), so the keyframe's row
+            # lands on its refined pose).
+            for fi_done in range(max_id, len(poses)):
+                poses[fi_done] = (corr @ poses[fi_done]).astype(np.float32)
+            self._corr_records.append((max_id, 1 + self._dispatched * self._chunk, corr))
+        self._pending_corr.clear()
+        return state
 
 
 # ------------------------------------------------------------------ monocular
@@ -389,10 +512,12 @@ def run_monocular(
     / 255 floats) to float noise.  The tail (len-1 mod chunk) runs per
     frame on the same quantised pixels.
 
-    ``pose_graph`` is not ported yet (ROADMAP queue 1) and raises."""
-    if pose_graph or pose_graph_every:
-        raise NotImplementedError(
-            "the pose graph is not ported to dvo_tpu_torch yet (ROADMAP queue 1)")
+    ``pose_graph``: harvest odometry, BA-window and loop-closure constraints
+    during the run (``models/posegraph``), on either path, and refine the
+    keyframe trajectory at the sequence's end: the returned poses are then
+    the refined ones.  ``pose_graph_every`` = K > 0 (with ``pose_graph``)
+    also refines every K promotions and writes the corrections into the live
+    keyframe ring."""
     device = torch.device(device)
     srcmap = build_undistort_map(calib) if undistort and calib.distortion is not None else None
     items = list(sequence)[:max_frames]
@@ -407,6 +532,7 @@ def run_monocular(
         gray, mask = next(stream)
         out = _Trajectory(items, metrics, verbose, mono=True)
         start_fi = 1
+        harvester = harvest = None
         if use_chunk:
             cfg_step, K_step = _device_cfg(cfg, calib.K, st, device)
             gray_c = quantize(gray)
@@ -415,23 +541,50 @@ def run_monocular(
             mask_step = torch.from_numpy(mask_full).to(device)
             state = monocular_init(torch.from_numpy(gray_c), mask_step, K_step, cfg_step,
                                    device=device, generator=generator)
+            hooks = {}
+            if pose_graph:
+                harvester = posegraph.PoseGraphHarvester(
+                    cfg_step, to_numpy(K_step), verbose=verbose, refine_every=pose_graph_every,
+                    device=device)
+                harvest = _ChunkedHarvest(harvester, out, chunk, mask_full,
+                                          cfg_step.mapper.history_capacity, (h, w))
+
+                def apply_pending():
+                    nonlocal state
+                    state = harvest.apply_pending(state)
+
+                hooks = dict(pose_of=harvest.pose_of, on_chunk_done=harvest.on_chunk_done,
+                             make_aux=lambda: harvest.pack_ring(state.history),
+                             before_dispatch=apply_pending)
 
             def fill_row(bufs, k):
                 g, m = next(stream)
                 _check_mask(m, mask_full)
                 bufs[0][k] = quantize(g)
+                if harvest is not None:
+                    harvest.filling = bufs[0]
 
             def dispatch(bufs):
                 nonlocal state
+                if harvest is not None:
+                    harvest.keep_grays()
                 state, res = monocular_run(state, bufs[0], mask_step, K_step, cfg_step)
                 return res
 
             start_fi = out.chunked(chunk, _Staging([((chunk, h, w), torch.uint8)], device),
-                                   fill_row, dispatch)
+                                   fill_row, dispatch, **hooks)
+            if harvest is not None:
+                # A refinement that the last chunks triggered reaches the
+                # state the tail runs on.
+                apply_pending()
         else:
             cfg_step, K_step = cfg, torch.tensor(np.asarray(calib.K, np.float32), device=device)
             state = monocular_init(torch.from_numpy(gray), torch.from_numpy(mask), K_step, cfg,
                                    device=device, generator=generator)
+            if pose_graph:
+                harvester = posegraph.PoseGraphHarvester(
+                    cfg, np.asarray(calib.K), verbose=verbose, refine_every=pose_graph_every,
+                    device=device)
 
         for fi in range(start_fi, len(items)):
             gray, mask = next(stream)
@@ -440,13 +593,39 @@ def run_monocular(
                 # quantised as the chunk rows were, on the staged mask.
                 gray = quantize(gray)
                 _check_mask(mask, mask_full)
-                mask = mask_step
+                mask_t = mask_step
             else:
-                mask = torch.from_numpy(mask)
-            state = out.step(fi, monocular_step, state, torch.from_numpy(gray), mask, K_step,
+                mask_t = torch.from_numpy(mask)
+            state = out.step(fi, monocular_step, state, torch.from_numpy(gray), mask_t, K_step,
                              cfg_step)
+            if harvester is None:
+                continue
+            res = out.last_result
+            if use_chunk:
+                # Tail keyframes harvest as chunk rows do; their deferred
+                # ring snapshots resolve in the last absorb below.
+                if bool(res.is_keyframe):
+                    harvester.on_chunk_row(fi, res, gray, mask_full)
+                continue
+            corrected = harvester.on_frame(fi, res, state, gray, mask)
+            if corrected is not None:
+                # This frame is the refined keyframe: its pose is emitted
+                # again as corrected, or the frames tracked against the
+                # corrected reference would get the correction a second time
+                # from finalize's apply_refinement.
+                state = corrected
+                out.poses[-1] = to_numpy(lie.se3_exp(corrected.ref.xi))
     finally:
         _close(loaders)
+    times, poses, secs = out.result()
+    if harvester is not None:
+        if harvest is not None and harvester._pending_snaps:
+            harvest.absorb(fetch(harvest.pack_ring(state.history)))
+        poses, pg_costs = harvester.finalize(times, poses, state)
+        if verbose and pg_costs.size:
+            print(f"pose-graph: {len(harvester.nodes)} nodes, {len(harvester.e_w)} edges "
+                  f"({harvester.closures} closures), cost {pg_costs[0]:.3e} -> "
+                  f"{pg_costs[-1]:.3e}")
     if checkpoint_out:
         from dvo_tpu_torch.utils.checkpoint import save_state
 
@@ -455,7 +634,7 @@ def run_monocular(
         from dvo_tpu_torch.utils.viz import keyframe_gallery, save_png
 
         save_png(gallery_out, keyframe_gallery(state.history))
-    return out.result()
+    return times, poses, secs
 
 
 # ---------------------------------------------------------------------- RGB-D

@@ -13,6 +13,7 @@ Tolerance: the TUM trajectory within 1e-5, the runners' tolerance
 (test_torch_runner), ATE within its 1e-4 rounding."""
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -220,12 +221,54 @@ def test_cuda_device_without_a_card_fails(data, tmp_path, monkeypatch):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("flags,item", [(["--ba"], "BA"), (["--pose-graph"], "pose graph"),
-                                        (["--pose-graph-every", "3"], "pose graph")])
-def test_unported_flags_are_refused(flags, item, data, tmp_path):
-    with pytest.raises(SystemExit, match=f"ROADMAP queue 1.*{item}"):
-        tcli.main(["--data", data["seq"], "--out", str(tmp_path / "t.txt"),
-                   "--device", "cpu"] + flags)
+@pytest.mark.parametrize("flags,ba,pg,every", [
+    (["--ba", "--ba-window", "2", "--ba-iters", "2"], (True, 2, 2), False, 0),
+    (["--pose-graph"], (False, 7, 5), True, 0),
+    (["--ba", "--pose-graph", "--pose-graph-every", "2"], (True, 4, 5), True, 2),
+], ids=["ba", "pose_graph", "ba_pose_graph_every"])
+def test_back_end_flags_reach_the_runner(flags, ba, pg, every, data, tmp_path, monkeypatch):
+    """``--ba [--ba-window M] [--ba-iters N]`` builds the config as
+    ``dvo_tpu.run`` does, ``--pose-graph`` and ``--pose-graph-every`` pass
+    through, and the run writes the trajectory that ``run_monocular`` gives
+    for the same arguments."""
+    from dvo_tpu_torch.config import DVOConfig
+
+    seen = {}
+    run_monocular = trun.run_monocular
+
+    def spy(seq, calib, cfg, **kw):
+        seen.update(cfg=cfg, kw=kw, calib=calib)
+        seen["out"] = run_monocular(seq, calib, cfg, **kw)
+        return seen["out"]
+
+    monkeypatch.setattr(trun, "run_monocular", spy)
+    out, metrics = str(tmp_path / "t.txt"), str(tmp_path / "m.jsonl")
+    report = cli(tcli, ["--data", data["seq"], "--mode", "mono", "--calib", data["calib"],
+                        "--chunk", str(CHUNK), "--seed", "5", "--out", out, "--metrics", metrics,
+                        "--device", "cpu"] + flags)
+    cfg = seen["cfg"]
+    assert (cfg.ba.enabled, cfg.ba.window, cfg.ba.iterations) == ba
+    assert dataclasses.replace(cfg, ba=DVOConfig.monocular().ba) == DVOConfig.monocular()
+    assert (seen["kw"]["pose_graph"], seen["kw"]["pose_graph_every"]) == (pg, every)
+    assert report["frames"] == N
+    traj = _tum(out)
+    assert traj.shape == (N, 8) and np.isfinite(traj).all()
+    ref = out + ".api"
+    write_tum(ref, seen["out"][0], seen["out"][1])
+    np.testing.assert_array_equal(traj, _tum(ref))
+    with open(metrics) as f:
+        costs = [json.loads(line)["ba_cost"] for line in f]
+    assert any(c is not None for c in costs) == (flags[1:2] == ["--ba-window"])
+
+
+def test_back_end_flags_match_dvo_tpu_run_defaults():
+    """The same defaults as ``dvo_tpu.run``: window 4, 5 iterations, no
+    refinement during the run; the help no longer calls them unported."""
+    args = tcli._parser().parse_args(["--data", "x"])
+    assert (args.ba, args.ba_window, args.ba_iters) == (False, 4, 5)
+    assert (args.pose_graph, args.pose_graph_every) == (False, 0)
+    assert "not ported" not in tcli._parser().format_help()
+    assert "not ported" not in tcli.__doc__
 
 
 def _flags(help_text):

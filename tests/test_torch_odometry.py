@@ -247,9 +247,130 @@ def test_step_builds_the_reference_in_one_call(branch, sequence, monkeypatch):
         assert torch.equal(new.history.gx[head], new.ref.base.gx)
 
 
-def test_bundle_adjustment_is_refused(sequence):
+# ------------------------------------------------------- bundle adjustment on
+#
+# The same rig with a keyframe every second frame (max_forward=2) and BA on a
+# window of 3 keyframes, 3 iterations: of the three promotions in six steps
+# the last two find a full window.  BA's damped solves amplify the
+# twin-vs-twin float noise (tests/test_torch_ba.py: 2e-4 on the window's
+# twists after three iterations), so with BA on poses are held within 1e-3,
+# ``ba_window_xi`` within 1e-3, ``ba_cost`` within 1% — ``dvo_tpu``'s own
+# chunked-vs-per-frame gate with BA is 2e-2 (tests/test_runner.py).
+
+BA_CFG = dataclasses.replace(
+    CFG, mapper=dataclasses.replace(CFG.mapper, max_forward=2),
+    ba=dataclasses.replace(CFG.ba, enabled=True, window=3, iterations=3))
+BA_TCFG = config_from_reference(BA_CFG)
+BA_TOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def runs_ba(sequence):
     grays, masks, K = sequence
-    cfg = dataclasses.replace(TCFG, ba=dataclasses.replace(TCFG.ba, enabled=True))
-    with pytest.raises(NotImplementedError):
-        todo.monocular_init(torch.tensor(grays[0]), torch.tensor(masks[0]), torch.tensor(K), cfg,
-                            device="cpu")
+    st0 = jodo.monocular_init(jnp.asarray(grays[0]), jnp.asarray(masks[0]), jnp.asarray(K),
+                              jax.random.PRNGKey(3), BA_CFG)
+    stj, rj = jodo.monocular_run(st0, jnp.asarray(grays[1:]), jnp.asarray(masks[1:]),
+                                 jnp.asarray(K), BA_CFG)
+    sp = todo.state_from_reference(jax.tree.map(np.asarray, st0), "cpu")
+    resets = torch.tensor(_reset_planes(st0.key, N - 1, BA_CFG))
+    stp, rp = todo.monocular_run(sp, torch.tensor(grays[1:]), torch.tensor(masks[1:]),
+                                 torch.tensor(K), BA_TCFG, reset_depths=resets)
+    return (st0, stj, rj), (stp, rp), resets
+
+
+def test_ba_slice_runs_ba_on_full_windows(runs_ba):
+    (_, _, rj), (_, rp), _ = runs_ba
+    kf = rp.is_keyframe.numpy()
+    cost = rp.ba_cost.numpy()
+    np.testing.assert_array_equal(kf, np.asarray(rj.is_keyframe))
+    assert kf.sum() == 3
+    assert np.array_equal(cost >= 0, np.asarray(rj.ba_cost) >= 0)
+    assert (cost[kf] >= 0).sum() == 2 and np.all(cost[~kf] == -1.0)
+    assert rp.ba_window_xi.shape == (N - 1, 3, 6)
+    assert np.all(rp.ba_window_xi.numpy()[cost < 0] == 0.0)
+
+
+@pytest.mark.parametrize("field", ["T_world", "relative_xi", "ba_cost", "ba_window_xi"])
+def test_ba_slice_matches(runs_ba, field):
+    (_, _, rj), (_, rp), _ = runs_ba
+    got, want = getattr(rp, field).numpy(), np.asarray(getattr(rj, field))
+    assert got.shape == want.shape
+    if field == "ba_cost":
+        np.testing.assert_allclose(got, want, rtol=1e-2)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=BA_TOL)
+
+
+def test_ba_slice_ring_and_reference_match(runs_ba):
+    """BA's refined twists and depths land in the ring and in the new
+    reference; the promoted frame's emitted pose is the refined one."""
+    (_, stj, rj), (stp, rp), _ = runs_ba
+    assert (stp.history.head, stp.history.count) == (int(stj.history.head), int(stj.history.count))
+    np.testing.assert_array_equal(stp.history.kf_id.numpy(), np.asarray(stj.history.kf_id))
+    np.testing.assert_allclose(stp.history.xi.numpy(), np.asarray(stj.history.xi), rtol=0,
+                               atol=BA_TOL)
+    # Depths here grow from the noise bootstrap, so many pixels are weakly
+    # constrained and swing with the poses (measured: median 1.3e-5, 90% within
+    # 5.5e-3, 95% within 2e-2 relative); the gate is the one tests/test_ba.py
+    # holds ``dvo_tpu``'s sharded BA to, 95% within 5e-2.
+    got, want = stp.history.depth.numpy(), np.asarray(stj.history.depth)
+    rel = np.abs(got - want) / (1.0 + np.abs(want))
+    assert np.median(rel) <= 1e-3 and np.quantile(rel, 0.95) <= 5e-2
+    np.testing.assert_allclose(stp.ref.xi.numpy(), np.asarray(stj.ref.xi), rtol=0, atol=BA_TOL)
+    last = int(np.flatnonzero(rp.ba_cost.numpy() >= 0)[-1])
+    from dvo_tpu_torch import lie as tlie
+    torch.testing.assert_close(rp.T_world[last], tlie.se3_exp(rp.ba_window_xi[last, -1]),
+                               rtol=0, atol=1e-6)
+
+
+def test_ba_changes_the_trajectory(runs, runs_ba):
+    (_, rp_off) = runs[1]
+    (_, rp_on) = runs_ba[1]
+    assert rp_off.ba_window_xi.shape == (N - 1, 0, 6) and torch.all(rp_off.ba_cost == -1.0)
+    assert not torch.allclose(rp_on.T_world, rp_off.T_world, atol=1e-4)
+
+
+def test_ba_checkpoint_from_dvo_tpu_continues(sequence, runs_ba, tmp_path):
+    """A state that ``dvo_tpu`` saved mid-run with BA on loads in the port
+    and continues to ``dvo_tpu``'s poses within the BA tolerance (the ring's
+    twists and depths are BA's)."""
+    from dvo_tpu.utils import checkpoint as jckpt
+    from dvo_tpu_torch.utils import checkpoint as tckpt
+
+    grays, masks, K = sequence
+    (st0, _, rj), _, resets = runs_ba
+    cut = 4                                 # frames 1..4 seen: two promotions, one BA
+    mid, _ = jodo.monocular_run(st0, jnp.asarray(grays[1:cut + 1]), jnp.asarray(masks[1:cut + 1]),
+                                jnp.asarray(K), BA_CFG)
+    path = str(tmp_path / "ba.npz")
+    jckpt.save_state(path, mid)
+    state = tckpt.load_state(path, "cpu")
+    assert state.frame_count == cut + 1
+    _, rest = todo.monocular_run(state, torch.tensor(grays[cut + 1:]),
+                                 torch.tensor(masks[cut + 1:]), torch.tensor(K), BA_TCFG,
+                                 reset_depths=resets[cut:])
+    np.testing.assert_array_equal(rest.is_keyframe.numpy(), np.asarray(rj.is_keyframe)[cut:])
+    assert (rest.ba_cost >= 0).any()
+    np.testing.assert_allclose(rest.T_world.numpy(), np.asarray(rj.T_world)[cut:], rtol=0,
+                               atol=BA_TOL)
+
+
+def test_ba_step_adds_no_host_read(sequence, monkeypatch):
+    """A promotion with BA reads one value back to the host, the keyframe
+    decision, as without BA: ``Tensor.__bool__``/``item`` run once."""
+    grays, masks, K = sequence
+    cfg = dataclasses.replace(BA_TCFG, ba=dataclasses.replace(BA_TCFG.ba, window=1),
+                              mapper=dataclasses.replace(BA_TCFG.mapper, max_forward=1))
+    state = todo.monocular_init(torch.tensor(grays[0]), torch.tensor(masks[0]),
+                                torch.tensor(K), cfg, device="cpu", noise=torch.zeros((H, W)))
+    reads = []
+    for name in ("__bool__", "item", "tolist", "__int__", "__float__", "numpy", "cpu"):
+        orig = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name,
+                            lambda self, *a, _o=orig, _n=name, **k: (reads.append(_n),
+                                                                      _o(self, *a, **k))[1])
+    _, res = todo.monocular_step(state, torch.tensor(grays[1]), torch.tensor(masks[1]),
+                                 torch.tensor(K), cfg, reset_depth=torch.ones((H, W)))
+    monkeypatch.undo()
+    assert reads == ["__bool__"], reads
+    assert bool(res.is_keyframe) and float(res.ba_cost) >= 0.0

@@ -393,6 +393,15 @@ def test_chunked_path_requires_a_constant_mask(runner, sequences, monkeypatch):
 def test_result_packing_round_trips_exactly():
     """One (N, D) float32 pack of every leaf and back: values and dtypes
     equal, the empty BA window included."""
+    _packing_round_trip(0)
+
+
+def test_result_packing_carries_the_ba_window():
+    """With BA on every row carries the window's (window, 6) twists."""
+    _packing_round_trip(3)
+
+
+def _packing_round_trip(window):
     from dvo_tpu_torch.models.mapper import DepthUpdateStats
     from dvo_tpu_torch.models.odometry import StepResult
     from dvo_tpu_torch.models.tracker import TrackResult
@@ -408,9 +417,10 @@ def test_result_packing_round_trips_exactly():
                              torch.randint(0, 15, (n, 2), generator=g, dtype=torch.int32)),
         mapping=DepthUpdateStats(*(torch.randint(0, 9999, (n,), generator=g,
                                                  dtype=torch.int32) for _ in range(4))),
-        ba_cost=torch.full((n,), -1.0), ba_window_xi=torch.zeros((n, 0, 6)))
+        ba_cost=torch.full((n,), -1.0), ba_window_xi=torch.rand((n, window, 6), generator=g))
     flat = trun._flatten_results(res)
-    assert flat.shape == (n, 16 + 6 + 1 + 6 + 8 * 3 + 2 + 4 + 1) and flat.dtype == torch.float32
+    assert flat.shape == (n, 16 + 6 + 1 + 6 + 8 * 3 + 2 + 4 + 1 + 6 * window)
+    assert flat.dtype == torch.float32
     back = trun._unflatten_results(res, flat.numpy())
     for a, b in zip(trun._leaves(back), trun._leaves(res)):
         assert a.dtype == b.numpy().dtype

@@ -318,3 +318,43 @@ def test_native_loader_matches_the_reference(tmp_path):
             ld.close()
     with pytest.raises(IOError):
         tnative.png_info(str(tmp_path / "missing.png"))
+
+
+@pytest.mark.parametrize("kind", ["mono", "rgbd", "stream"])
+def test_recorder_writes_what_the_reference_writes(kind, tmp_path):
+    """``utils/record.py`` (``record``, ``record_rgbd``, ``record_stream``)
+    against ``dvo_tpu.utils.record`` on the same frames: the same file
+    names, ``info.txt`` and PNG bytes; a directory that is no prior
+    recording is never deleted."""
+    from dvo_tpu.utils import record as jrecord
+    from dvo_tpu_torch.utils import record as trecord
+
+    rng = np.random.default_rng(0)
+    grays = [rng.random((12, 16)).astype(np.float32) for _ in range(4)]
+    depths = [(1.0 + rng.random((12, 16))).astype(np.float32) for _ in range(4)]
+    outs = []
+    for mod, name in ((jrecord, "ref"), (trecord, "port")):
+        out = str(tmp_path / name)
+        if kind == "mono":
+            n = mod.record(iter(grays), out, limit=3)
+        elif kind == "rgbd":
+            n = mod.record_rgbd(zip(grays, depths), out)
+        else:
+            src = tmp_path / f"src_{name}"
+            jrecord.record(iter(grays), str(src))
+            os.remove(src / "info.txt")
+            n = mod.record_stream(str(src), out, idle_timeout_s=0.3)
+        assert n == (3 if kind == "mono" else 4)
+        outs.append(out)
+    assert sorted(os.listdir(outs[0])) == sorted(os.listdir(outs[1]))
+    for fname in os.listdir(outs[0]):
+        with open(os.path.join(outs[0], fname), "rb") as a, \
+                open(os.path.join(outs[1], fname), "rb") as b:
+            assert a.read() == b.read(), fname
+    assert trecord.DEPTH_SCALE == jrecord.DEPTH_SCALE
+    other = tmp_path / "not_a_recording"
+    other.mkdir()
+    (other / "keep.txt").write_text("x")
+    with pytest.raises(FileExistsError):
+        trecord.record(iter(grays), str(other))
+    assert (other / "keep.txt").exists()
