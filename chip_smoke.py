@@ -32,15 +32,24 @@ Phases, one line each (or a few):
                 depth/sigma pair and one plane.  All of it but the RGB-D part
                 again at Kinect mono's shapes (106x128 x 3), on a
                 ``monocular_init_with_depth`` state of the RGB-D frames run
-                until its ring is full.  Call times from CUDA events, device
+                until its ring is full.  Then the gate census of the depth
+                update on this rig (``gate_census``: which observation gate
+                rejects each pixel first, on the plain version) and the
+                analytic rig (``render_planes``: textured planes at known
+                depths rendered per view by ray-plane intersection; the first
+                keyframe with the true depth): its accepted observations per
+                depth update over PLANE_FRAMES frames, and both epipolar
+                entries, the regularize-and-cull launch and the frame builds
+                held and timed on it.  Call times from CUDA events, device
                 times from ``torch.profiler``; each kernel's bound from its
-                ``work()`` on these inputs.
+                ``work()`` on these inputs, and its launch floor: an empty
+                launch and a copy of its bytes (``csrc/floor.cu``).
   4. main     — ``monocular_init`` + ``monocular_run`` with
                 ``DVOConfig.monocular()`` on 48 synthetic 640x480 uint8
                 frames (chunks of 24); every kernel of the path must have
-                launched: per frame ``gn_level`` three times, the frame build
-                and the regularize-and-cull launch once, ``regularize`` never,
-                epipolar once per frame that is no keyframe.  Then the same
+                launched: per frame ``gn_level`` three times, the frame build,
+                the regularize-and-cull launch and epipolar once (both mapping
+                branches are enqueued on every frame), ``regularize`` never.  Then the same
                 run with the mapper on its fields route (the 24 field planes
                 prepared in PyTorch ops and handed to the kernel's fields
                 entry; the reference rebuilt by three launches), twice, and
@@ -61,7 +70,14 @@ Phases, one line each (or a few):
   7. monodepth — ``monocular_init_with_depth`` + ``monocular_run`` on 12
                 640x480 frames; the path's four kernels must have launched.
   8. syncs    — host syncs per frame under ``set_sync_debug_mode``: none
-                on the RGB-D path, one (the keyframe branch) on the mono one.
+                on the RGB-D path and none over the 48-frame mono run (the
+                keyframe decision stays on the device).
+     graphs   — one ``monocular_step`` (no BA) and one ``rgbd_step`` captured
+                in a CUDA graph (capture raises on a host sync) and replayed
+                on six frames each, every replay equal bitwise to the eager
+                step on the same inputs; the launch counters count the
+                captured kernels per replay; ms per replay against the eager
+                step in turns, device ops and device-busy us of a replay.
   9. cli      — ``python -m dvo_tpu_torch.run`` (its ``main``, in this
                 process) on PNG sequences written from the frames above with
                 a zlib writer, and calibration YAMLs: RGB-D (the 64 frames of
@@ -69,7 +85,10 @@ Phases, one line each (or a few):
                 ``--chunk 24 --checkpoint``) and Kinect in both modes (8
                 pairs of 1920x1080 color and 512x424 depth, ``--chunk 3``).
                 Prints the decode route and, per path, ms/frame with the wall
-                split into decode and dispatch/drain.  Requires finite poses
+                split into decode (the time the runner waits for its next
+                frame) and dispatch/drain; on RGB-D, mono and Kinect RGB-D the
+                PIL route's pool against decoding on the calling thread, in
+                turns.  Requires finite poses
                 and the launches of each path's kernels; the RGB-D poses
                 within 1e-5 of ``rgbd_init`` + ``rgbd_run_raw`` on the same
                 frames; the reloaded checkpoint's next step equal to the live
@@ -86,7 +105,8 @@ Phases, one line each (or a few):
                 ``ba_cost`` of the first 24 frames against the CPU's; every
                 promotion with a full window has a finite ``ba_cost`` >= 0
                 and ``ba_window_xi`` is (4, 6); the launches are exactly the
-                mono path's; one host sync per frame; device ops, device-busy
+                mono path's; one host sync per frame (the decision and the
+                ring's head and count, for BA's window slots); device ops, device-busy
                 and wall ms of one ``bundle_adjust`` with the targets batched
                 and with the literal double loop; the run with and without BA
                 in turns (A, B, B, A).
@@ -220,6 +240,7 @@ PG_COST_TOL = 1e-2           # final cost, relative
 PG_CLI_TOL = 5e-3
 PG_CLI_ALL_TOL = 2e-2        # over all frames (5.6e-3 measured)
 EXTRA_FRAMES = 8             # frames of the --trace/--gallery/--stream runs
+DECODE_THREADS = (8, 4, 2, 1)  # PIL decode threads the cli phase compares
 
 
 def phase(name: str, msg: str) -> None:
@@ -346,6 +367,140 @@ def render(base, depth, K, step, n: int):
         grays.append(img)
         masks.append(mask)
     return torch.stack(grays), torch.stack(masks)
+
+
+# The analytic rig (fault k of the earlier rigs: inverse warps of one frame
+# with one depth map, whose observations the gates mostly reject): planes at
+# known depths in frame 0's coordinates (x right, y down, z forward),
+# n . P = h, a bounded one within (x range, y range); rendered per view by
+# ray-plane intersection with a texture defined in 3D, so every view is
+# consistent with every other.  The scene is near (0.9-1.6 m) and the motion
+# mostly sideways, so that a few promotions give a pixel's born keyframe a
+# baseline of several centimetres: the sigma the epipolar geometry gives an
+# observation (depth^2 / (focal length x baseline) per pixel of segment)
+# then passes the 0.5 m gate.  The first keyframe carries the true depth.
+PLANE_FRAMES = 40
+PLANE_STEP = (0.012, 0.001, 0.002, 0.0, 0.002, 0.0)
+PLANE_SIGMA = 0.1       # the first keyframe's depth sigma [m]
+PLANES = (
+    ((0.0, 0.0, 1.0), 1.6, None),                              # back wall
+    ((0.0, 0.0, 1.0), 0.9, ((-0.35, 0.05), (-0.3, 0.25))),     # a box's front
+    ((0.0, 1.0, 0.0), 0.45, None),                             # floor
+    ((0.958, 0.0, -0.287), 0.096, None),                       # a slanted wall, right
+)
+
+
+def render_planes(device, n=PLANE_FRAMES):
+    """``n`` + 1 views of ``PLANES`` under constant motion PLANE_STEP (view
+    k's world-to-camera pose exp(xi_k), as ``render``'s), 640x480: uint8
+    gray, masks (a plane was hit) and frame 0's depth, on ``device``.  The
+    texture is a sum of ten 3D sinusoids of 50-140 rad/m, sharpened by a
+    tanh, so that the culled frames have strong gradients."""
+    from dvo_tpu_torch import lie
+
+    rng = np.random.default_rng(SEED + 2)
+    dirs = rng.normal(size=(10, 3))
+    freqs = dirs / np.linalg.norm(dirs, axis=1, keepdims=True) * rng.uniform(50, 140, (10, 1))
+    freqs = torch.tensor(freqs, dtype=torch.float64, device=device)
+    phases = torch.tensor(rng.uniform(0, 2 * np.pi, 10), dtype=torch.float64, device=device)
+    amps = torch.tensor(rng.uniform(0.5, 1.0, 10), dtype=torch.float64, device=device)
+    K = torch.tensor([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]], device=device)
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float64, device=device),
+                            torch.arange(W, dtype=torch.float64, device=device), indexing="ij")
+    rays = torch.stack([(xs - 320.0) / 600.0, (ys - 240.0) / 600.0,
+                        torch.ones_like(xs)]).reshape(3, -1)
+    step = torch.tensor(PLANE_STEP, dtype=torch.float32, device=device)
+    xi = torch.zeros(6, dtype=torch.float32, device=device)
+    grays, masks, depth0 = [], [], None
+    for k in range(n + 1):
+        if k:
+            xi = lie.compose(xi, step)
+        T = lie.se3_exp(xi).double()
+        R, t = T[:3, :3], T[:3, 3]
+        c = -(R.T @ t)
+        dw = R.T @ rays
+        best = torch.full((H * W,), float("inf"), dtype=torch.float64, device=device)
+        for normal, h, bounds in PLANES:
+            nrm = torch.tensor(normal, dtype=torch.float64, device=device)
+            nd = nrm @ dw
+            s = (h - nrm @ c) / torch.where(nd.abs() < 1e-12, 1e-12, nd)
+            ok = s > 1e-6
+            if bounds is not None:
+                P = c[:, None] + s * dw
+                (x0, x1), (y0, y1) = bounds
+                ok = ok & (P[0] >= x0) & (P[0] <= x1) & (P[1] >= y0) & (P[1] <= y1)
+            best = torch.where(ok & (s < best), s, best)
+        hit = torch.isfinite(best)
+        P = c[:, None] + torch.where(hit, best, 1.0) * dw
+        tex = (amps[:, None] * torch.sin(freqs @ P + phases[:, None])).sum(0)
+        gray = 0.5 + 0.5 * torch.tanh(1.5 * tex)
+        grays.append(torch.where(hit, gray, 0.0).reshape(H, W).float())
+        masks.append(hit.reshape(H, W))
+        if k == 0:
+            depth0 = torch.where(hit, best, 0.0).reshape(H, W).float()
+    return to_uint8(torch.stack(grays)), torch.stack(masks), K, depth0
+
+
+GATES = ("no observation (crop, object frame, age, segment)", "no match (SSD)",
+         "match off the image", "no gradient at the match", "depth out of band",
+         "sigma out of band")
+
+
+def gate_census(args):
+    """Which gate rejects each pixel of the crop first, on the plain version
+    (``epipolar_fields``, ``march_plain`` and the gates of
+    ``epipolar_update_plain`` in their order), and how the observations that
+    pass all of them fare in the depth filter.  Returns a dict of counts."""
+    from dvo_tpu_torch.models import mapper
+    from dvo_tpu_torch.ops.cuda import epipolar as E
+    from dvo_tpu_torch.ops.depth_filter import gaussian_update_with_reset
+
+    obj, obj_xi, rel_xi, depth, sigma, age, hist, reset, cfg = args
+    f, _ = mapper.epipolar_fields(*args)
+    h, w = depth.shape
+    best_s, min_ssd = E.march_plain(f, hist.gray, cfg)
+    best_o = (best_s + 1).to(torch.float32)
+    mx = f[E.F_START_X] + best_o * f[E.F_DIR_X]
+    my = f[E.F_START_Y] + best_o * f[E.F_DIR_Y]
+    slot = f[E.F_SLOT].long()
+    bxi, byi = torch.round(mx).to(torch.int32), torch.round(my).to(torch.int32)
+    bxc, byc = torch.clamp(bxi, 0, w - 1).long(), torch.clamp(byi, 0, h - 1).long()
+    gxv, gyv = hist.gx[slot, byc, bxc], hist.gy[slot, byc, bxc]
+    g_ok = (bxi >= 0) & (bxi < w) & (byi >= 0) & (byi < h) & hist.gmask[slot, byc, bxc]
+    r3q, ttz = f[E.F_R3Q], f[E.F_TTZ]
+    a = (r3q * mx - f[E.F_KRQ0], r3q * my - f[E.F_KRQ1], r3q - f[E.F_KRQ2])
+    b = (ttz * mx - f[E.F_KT0], ttz * my - f[E.F_KT1], ttz - f[E.F_KT2])
+    a_dot_a = a[0] * a[0] + a[1] * a[1] + a[2] * a[2]
+    new_depth = -(a[0] * b[0] + a[1] * b[1] + a[2] * b[2]) / torch.where(a_dot_a < 1e-20, 1.0,
+                                                                          a_dot_a)
+    length = f[E.F_LENGTH]
+    g_dot_l = torch.abs(gxv * (-f[E.F_DIR_X]) + gyv * (-f[E.F_DIR_Y]))
+    epi = torch.full_like(g_dot_l, cfg.epipolar_sigma ** 2) / torch.clamp(g_dot_l * g_dot_l,
+                                                                          min=E.EPS)
+    lum = torch.full_like(g_dot_l, 2.0 * cfg.luminance_sigma ** 2) / torch.clamp(
+        g_dot_l / length, min=E.EPS)
+    new_sigma = (f[E.F_DMAX] - f[E.F_DMIN]) / length * torch.sqrt(epi + lum)
+    gates = (f[E.F_BASE_OK] > 0.5,
+             min_ssd <= cfg.ssd_window * cfg.matching_threshold_ratio,
+             (mx >= 0) & (my >= 0) & (mx <= w) & (my <= h),
+             g_ok,
+             (new_depth > cfg.accept_depth[0]) & (new_depth < cfg.accept_depth[1]),
+             (new_sigma > cfg.accept_sigma[0]) & (new_sigma < cfg.accept_sigma[1]))
+    xs = torch.arange(w, device=depth.device)[None, :]
+    ys = torch.arange(h, device=depth.device)[:, None]
+    alive = ((xs >= cfg.crop_x[0]) & (xs <= cfg.crop_x[1]) & (ys >= cfg.crop_y[0])
+             & (ys <= cfg.crop_y[1])).expand(h, w)
+    out = {"crop_pixels": int(alive.sum())}
+    for name, gate in zip(GATES, gates):
+        out[name] = int((alive & ~gate).sum())
+        alive = alive & gate
+    _, _, accepted = gaussian_update_with_reset(f[E.F_PRIOR_D], f[E.F_PRIOR_S], new_depth,
+                                                new_sigma, f[E.F_RESET_D], obs_valid=alive,
+                                                cfg=cfg.depth_filter)
+    out["observed"] = int(alive.sum())
+    out["accepted"] = int(accepted.sum())
+    out["rejected by the filter"] = out["observed"] - out["accepted"]
+    return out
 
 
 def to_uint8(grays):
@@ -823,6 +978,71 @@ def kernel_phase(state, grays, masks, K, cfg, tag=""):
     return results, fb
 
 
+PLANE_WARM = 12         # frames of the analytic rig before its kernels are held
+
+
+def plane_rig_phase(dev, card_line, cfg, resets, kernels, fb, old_census):
+    """The mono path on the analytic rig (``render_planes``): the first
+    keyframe with the true depth, PLANE_FRAMES frames; the accepted
+    observations per depth update; then, on the state PLANE_WARM frames in,
+    the gate census, both epipolar entries, the regularize-and-cull launch and
+    the frame builds held against their plain versions and timed.  Adds to
+    the ``kernels`` entries and to ``fb``; returns the rig's summary."""
+    from dvo_tpu_torch.models.frame import normalize_gray
+    from dvo_tpu_torch.models.odometry import (
+        _cull_chunk,
+        monocular_init_with_depth,
+        monocular_run,
+    )
+    from dvo_tpu_torch.ops.cuda import framebuild
+
+    grays, masks, K, depth0 = render_planes(dev, PLANE_FRAMES + 1)
+    start = monocular_init_with_depth(grays[0], masks[0], depth0,
+                                      torch.full_like(depth0, PLANE_SIGMA), K, cfg,
+                                      device=dev)
+    n = PLANE_FRAMES
+    (_, res), secs, launches = run_path("planes", lambda: monocular_run(
+        start, grays[1:1 + n], masks[1:1 + n], K, cfg, resets[:n].to(dev)))
+    kf = res.is_keyframe
+    require_launched("planes", launches, MONO_KERNELS, (cfg.pyramid.levels, n),
+                     mono=("fused", n, int(kf.sum()), 0))
+    accepted = res.mapping.accepted[~kf].tolist()
+    if not torch.isfinite(res.T_world).all():
+        raise AssertionError("planes: non-finite pose")
+    warm, _ = monocular_run(start, grays[1:1 + PLANE_WARM], masks[1:1 + PLANE_WARM], K, cfg,
+                            resets[:PLANE_WARM].to(dev))
+    cfg0, K0, (g, m) = _cull_chunk(cfg, K, grays[1 + PLANE_WARM], masks[1 + PLANE_WARM])
+    args, _ = depth_update_args(warm, g, m, K0, cfg0)
+    census = gate_census(args)
+    shape = "x".join(map(str, g.shape))
+    phase("kernels", f"planes: {n} frames, {int(kf.sum())} promotions, accepted per depth "
+                     f"update {accepted} ({sum(accepted)} in all, {secs * 1e3 / n:.2f} ms/frame); "
+                     f"gate census {PLANE_WARM} frames in: {census}; the earlier rig's: "
+                     f"{old_census}")
+    by_fields, fused = check_epipolar(f"planes {shape}", args)
+    base = warm.ref.base
+    rc = check_regularize_cull(f"planes {shape}x{cfg.pyramid.levels}", warm.ref, base.depth,
+                               base.sigma, warm.ref.age, cfg.mapper)
+    levels = cfg.pyramid.levels
+    gray = normalize_gray(g)
+    for kind, args_fb in (("tracking", (gray, m, None, None, levels)),
+                          ("depth", (gray, m, base.depth, base.sigma, levels))):
+        label = f"planes {kind} {shape}x{levels}"
+        fb[label] = check_framebuild(label, framebuild.build_pyramid_planes,
+                                     framebuild.build_pyramid_planes_plain, *args_fb)
+    entries = {k["name"]: k for k in kernels}
+    for name, got in (("epipolar", by_fields), ("epipolar_fused", fused),
+                      ("regularize_cull", rc)):
+        entry = entries[name]
+        entry["bit_identical"] = entry["bit_identical"] and got["bit_identical"]
+        entry["planes"] = {k: v for k, v in got.items() if k in (
+            "bit_identical", "stats", "ms", "plain_ms", "device_us", "device_launches",
+            "bound_us", "observing_pixels", "marched_samples", "slots_in_use")}
+    return dict(frames=n, promotions=int(kf.sum()), accepted_per_update=accepted,
+                accepted_sum=sum(accepted), census=census, earlier_rig_census=old_census,
+                ms_per_frame=secs * 1e3 / n)
+
+
 def kinect_mono_kernel_phase(dev, grays, masks, counts, K, cfg):
     """The kernels at the shapes of ``--format kinect --mode mono``: the
     512x424 depth camera culled twice by ``DVOConfig.monocular()``, a
@@ -842,7 +1062,7 @@ def kinect_mono_kernel_phase(dev, grays, masks, counts, K, cfg):
     i = 1
     while state.history.count < state.history.capacity:
         if i + KINECT_WARM >= grays.shape[0]:
-            raise AssertionError(f"kinect mono: the ring holds {state.history.count} "
+            raise AssertionError(f"kinect mono: the ring holds {int(state.history.count)} "
                                  f"keyframes after {i - 1} frames")
         sl = slice(i, i + KINECT_WARM)
         state, _ = monocular_run(state, grays[sl].to(dev), masks[sl].to(dev), K, cfg)
@@ -893,8 +1113,11 @@ def rgbd_kernel_phase(dev, grays, masks, counts, K, cfg, entries, fb):
     fb[f"one {shape}"] = check_framebuild(
         f"one {shape}", framebuild.cull_pyramid_one, framebuild.cull_pyramid_one_plain,
         depths[1], levels)
-    ops, us = device_profile(lambda: framebuild.build_pyramid_planes(*build_args), 20, True)
-    phase("kernels", f"framebuild rgbd {shape}: device {us:.2f} us in {ops:g} launches")
+    reads = [device_profile(lambda: framebuild.build_pyramid_planes(*build_args), 20, True)
+             for _ in range(2)]
+    ops, us = reads[-1]
+    phase("kernels", f"framebuild rgbd {shape}: device {' / '.join(f'{r[1]:.2f}' for r in reads)} "
+                     f"us in {ops:g} launches (two windows)")
     return f"rgbd {shape}", dict(device_us=us, device_launches=ops), \
         framebuild.work(g[1].shape, levels, 3, True)
 
@@ -927,6 +1150,90 @@ def count_syncs(fn) -> int:
     for stack in syncs:
         print("sync at:\n" + "".join(stack[-6:]), file=sys.stderr)
     return len(syncs)
+
+
+def plain_json(obj, path="result"):
+    """``obj`` with every tensor in it as a number or list, each such path
+    named on stderr (the result line is built from plain numbers)."""
+    if isinstance(obj, torch.Tensor):
+        print(f"a tensor at {path}", file=sys.stderr)
+        return obj.tolist()
+    if isinstance(obj, dict):
+        return {k: plain_json(v, f"{path}.{k}") for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [plain_json(v, f"{path}[{i}]") for i, v in enumerate(obj)]
+    return obj
+
+
+GRAPH_REPLAYS = 6       # replays of each captured step, each against the eager step
+
+
+def tensors_of(tree):
+    """Every tensor of a state or result (dataclasses, tuples, lists), in a
+    fixed order; generators and None are skipped."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree) for t in tensors_of(getattr(tree, f.name))]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in tensors_of(x)]
+    return []
+
+
+def graph_phase(card_line, name, step, inputs, frames, kernels, levels):
+    """``step()`` (one monocular or RGB-D step on a fixed state, reading its
+    frame from the static tensors ``inputs``) captured in a CUDA graph —
+    capture raises on any host sync, so a capture is the proof that the step
+    makes none — and replayed on ``frames`` (tuples of tensors copied into
+    ``inputs`` before each replay), each replay held bitwise against the
+    eager step on the same inputs.  The launch counters count the captured
+    kernels once per replay, so the replays' launches are held as a path's.
+    Returns the phase's numbers: ms per replay and per eager step (CUDA
+    events, in turns), device ops and device-busy us of one replay, the
+    keyframe decisions of the replays."""
+    from dvo_tpu_torch.ops.cuda import _build
+
+    def load(frame):
+        for dst, src in zip(inputs, frame):
+            dst.copy_(src)
+
+    load(frames[0])
+    out, replay, captured = _build.capture_graph(step)
+    decisions = []
+
+    def replays():
+        for frame in frames:
+            load(frame)
+            replay()
+            eager = step()
+            got, want = tensors_of(out), tensors_of(eager)
+            if len(got) != len(want) or not all(
+                    a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(got, want)):
+                raise AssertionError(f"graph {name}: a replay differs from the eager step")
+            decisions.append(bool(out[1].is_keyframe))
+
+    _, _, launches = run_path(f"{name}_graph", replays)
+    n = len(frames)
+    # eager steps made launches too: the replays' share is the captured set
+    replay_launches = {k: captured[k] * n for k in captured}
+    require_launched(f"{name}_graph", {k: launches[k] - replay_launches[k] for k in launches},
+                     kernels)
+    require_launched(f"{name}_graph", replay_launches, kernels, (levels, n))
+    ms_replay, ms_eager = [], []
+    for order in ((replay, step), (step, replay)):
+        for fn in order:
+            (ms_replay if fn is replay else ms_eager).append(timed(fn, reps=20))
+    ops, busy = device_profile(replay, 10, True)
+    got = dict(captured_launches={k: v for k, v in captured.items() if v},
+               replays=n, keyframes=decisions, ms_per_replay=ms_replay,
+               ms_per_eager_step=ms_eager, replay_device_ops=ops, replay_device_us=busy)
+    phase("graphs", f"{name}: one step captured (no host sync), {n} replays equal to the eager "
+                    f"step bitwise (keyframe decisions {decisions}); a replay launches "
+                    f"{got['captured_launches']}; ms per replay {ms_replay} vs eager step "
+                    f"{ms_eager} (turns); a replay {ops:g} device ops, {busy:.1f} us busy "
+                    f"on {card_line}")
+    return got
 
 
 def write_png(path, img) -> None:
@@ -1173,7 +1480,7 @@ def cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_p
         step_loaded = monocular_step(loaded, g, m, K0, cfg0, resets[0].to(dev))[1]
         dT = (step_live.T_world - step_loaded.T_world).abs().max().item()
         same_kf = bool(step_live.is_keyframe) == bool(step_loaded.is_keyframe)
-        phase("cli", f"cli_mono checkpoint: {loaded.history.count} keyframes in the ring, "
+        phase("cli", f"cli_mono checkpoint: {int(loaded.history.count)} keyframes in the ring, "
                      f"next step live vs reloaded max |dT| {dT:.3g} (tol {POSE_TOL}), "
                      f"keyframe flags equal: {same_kf}")
         if not same_kf or not dT <= POSE_TOL:
@@ -1210,6 +1517,32 @@ def cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_p
                          f"vs on the CPU: max |dT| {dT:.3g} (tol {POSE_TOL})")
             if not dT <= POSE_TOL:
                 raise AssertionError(f"cli_kinect_{mode}: CUDA and CPU runs disagree")
+        # The PIL route's decode pool at 8, 4 and 2 threads against decoding
+        # on the calling thread (PIL_THREADS = 1), in turns (8, 4, 2, 1, 1,
+        # 2, 4, 8).
+        summary["decode_turns"] = {}
+        for name, data, calib, extra in (
+                ("cli_rgbd", rgbd_dir, rgbd_yaml, ("--chunk", str(CLI_CHUNK), "--mode", "rgbd")),
+                ("cli_mono", mono_dir, mono_yaml, ("--chunk", str(CLI_CHUNK), "--mode", "mono")),
+                ("cli_kinect_rgbd", kin_dir, kin_yaml, ("--chunk", str(KINECT_CHUNK), "--format",
+                                                        "kinect", "--mode", "rgbd"))):
+            turns = {threads: [] for threads in DECODE_THREADS}
+            for threads in DECODE_THREADS + DECODE_THREADS[::-1]:
+                with patched(runner, "PIL_THREADS", threads), \
+                        patched(runner, "PIL_AHEAD", 2 * threads):
+                    got = cli_path(f"{name}_pil{threads}", [
+                        "--data", data, "--calib", calib, *extra,
+                        "--out", os.path.join(root, "turn.txt")])
+                n = len(got["result"][0]) - 1
+                turns[threads].append(dict(ms_per_frame=1e3 * got["wall_s"] / n,
+                                           decode_share=got["decode_s"] / got["wall_s"]))
+            summary["decode_turns"][name] = turns
+            fmt = lambda rows: ", ".join(f"{r['ms_per_frame']:.2f} ms/frame (decode "
+                                         f"{100 * r['decode_share']:.1f}%)" for r in rows)
+            phase("cli", f"{name} PIL decode by threads (1: the calling thread; the default "
+                         f"{runner.PIL_THREADS}), in turns: "
+                         + "; ".join(f"{t}: {fmt(rows)}" for t, rows in turns.items())
+                         + f" on {card_line}")
         summary["extras"] = cli_extras(root, mono_dir, mono_yaml, cfg)
     return summary
 
@@ -1247,8 +1580,11 @@ def require_launched(path, launches, names, levels_per_frame=None, mono=None):
             raise AssertionError(f"{path}: expected {levels} gn_level launches per frame over "
                                  f"{frames} frames and no gn launch: {launches}")
     if mono is not None:
+        # Both mapping branches are enqueued on every frame (the keyframe
+        # decision is selected on the device): the depth update launches on
+        # keyframes too.
         route, frames, keyframes, inits = mono
-        want = dict(epipolar=frames - keyframes)
+        want = dict(epipolar=frames)
         if route == "fused":    # the tracking frame; regularize and cull in one launch
             want.update(framebuild=frames + inits, regularize=0, regularize_cull=frames)
         else:                   # + the pair build and the one-plane build; the regulariser
@@ -1385,7 +1721,7 @@ def cli_extras(root, mono_dir, mono_yaml, cfg):
     trace = os.path.join(trace_dir, "trace.json")
     if not os.path.isfile(trace) or os.path.getsize(trace) == 0:
         raise AssertionError("cli --trace wrote no trace.json")
-    count = got["state"].history.count
+    count = int(got["state"].history.count)
     h0, w0 = H >> cfg.pyramid.culls, W >> cfg.pyramid.culls
     want = (count * h0 + 2 * (count - 1), 3 * w0 + 4)
     if png_size(gallery) != want:
@@ -1636,7 +1972,7 @@ def posegraph_phase(dev, card_line, grays, K, cfg, by_path):
             by_path[name] = launches
             tried, kfs = len(h._tried_pairs), len(h.nodes)
             want = dict(framebuild=n + 1 + 2 * tried, gn_level=cfg.pyramid.levels * (n + tried),
-                        regularize_cull=n, epipolar=n - kfs, regularize=0, gn=0)
+                        regularize_cull=n, epipolar=n, regularize=0, gn=0)
             if not np.isfinite(poses[chunk]).all():
                 raise AssertionError(f"{name}: non-finite pose")
             if {k: launches[k] for k in want} != want:
@@ -1681,9 +2017,10 @@ def main() -> None:
         raw_depth,
         rgbd_init,
         rgbd_run_raw,
+        rgbd_step,
     )
     from dvo_tpu_torch.ops.cuda import _build
-    from dvo_tpu_torch.tools import epipolar_sweep
+    from dvo_tpu_torch.tools import epipolar_sweep, framebuild_floor
 
     # 1. device
     dev = torch.device("cuda", 0)
@@ -1727,7 +2064,8 @@ def main() -> None:
     early, _ = monocular_run(init(dev), grays[1:1 + EARLY_FRAMES], masks[1:1 + EARLY_FRAMES], K,
                              cfg, resets[:EARLY_FRAMES].to(dev))
     if not early.history.count < early.history.capacity:
-        raise AssertionError(f"the early state's ring holds {early.history.count} keyframes")
+        raise AssertionError(f"the early state's ring holds {int(early.history.count)} "
+                             "keyframes")
     early_args, _ = depth_update_args(early, *_cull_chunk(cfg, K, grays[1 + EARLY_FRAMES],
                                                           masks[1 + EARLY_FRAMES])[2], K0, cfg0)
     old = early_args[5].clone()
@@ -1735,7 +2073,7 @@ def main() -> None:
     old[y0 + 4:y0 + 20, x0 + 8:x1 - 8] = early.history.count + 1
     early_args = early_args[:5] + (old,) + early_args[6:]
     _, early_fused = check_epipolar(
-        f"early ({early.history.count} of {early.history.capacity} keyframes)", early_args,
+        f"early ({int(early.history.count)} of {early.history.capacity} keyframes)", early_args,
         timed_too=False)
     if early_fused["stats"][3] != 16 * (x1 - x0 - 16) or early_fused["stats"][0] == 0:
         raise AssertionError(f"early state: counts {early_fused['stats']}")
@@ -1763,6 +2101,9 @@ def main() -> None:
                 "name", "route", "source", "replaces", "counter", "entry", "no_library_call",
                 "times_by_shape")}
     fb.update(kin_fb)
+    # ... and on the analytic rig, after the gate census of the earlier one.
+    old_census = gate_census(depth_update_args(warm, gray_next, mask_next, K0, cfg0)[0])
+    planes = plane_rig_phase(dev, card_line, cfg, resets, kernels, fb, old_census)
 
     # 4. main path
     def mono_main(n=N_FRAMES):
@@ -1802,17 +2143,22 @@ def main() -> None:
                   fields_vs_fused_first_frames_max_dT=dT_routes[1], keyframes_equal=same_kf,
                   **profiled_loops(profile_run, PROFILE_FRAMES, ms_routes,
                                    ("fields", fields_route)))
-    # One frame that is no keyframe, profiled alone on both routes.
-    # (the first such frame after the warm-up: promotions come every few frames)
-    before = warm
+    # One frame that is no keyframe, profiled alone on both routes, and one
+    # that is (the first such frames after the warm-up: promotions come every
+    # few frames).
+    before, kf_args = warm, None
     for i in range(nxt, nxt + PROFILE_FRAMES):
         gray_i, mask_i = _cull_chunk(cfg, K, grays[i], masks[i])[2]
         step_args = (before, gray_i, mask_i, K0, cfg0, resets[i - 1].to(dev))
         before, res = monocular_step(*step_args)
         if not bool(res.is_keyframe):
             break
+        kf_args = kf_args or step_args
     else:
         raise AssertionError(f"{PROFILE_FRAMES} keyframes in a row after the warm-up")
+    if kf_args is not None:
+        routes["keyframe_step_device_ops"] = device_profile(
+            lambda: monocular_step(*kf_args))[0]
     routes["non_keyframe_step_device_ops"] = {}
     for route in ("fused", "fields"):
         with fields_route() if route == "fields" else contextlib.nullcontext():
@@ -1837,7 +2183,8 @@ def main() -> None:
                   f"{N_FRAMES}, keyframe decisions equal: {same_kf}; device ops per frame and "
                   f"idle share over {PROFILE_FRAMES} frames after the warm-up: "
                   f"{device_ops(routes, ('fused', 'fields'))}; device ops of one frame that is "
-                  f"no keyframe: {routes['non_keyframe_step_device_ops']}; fields launches "
+                  f"no keyframe: {routes['non_keyframe_step_device_ops']}, of one keyframe (fused): "
+                  f"{routes.get('keyframe_step_device_ops')}; fields launches "
                   f"{by_path['mono_fields']} on {card_line}")
     gn_loops = {}
     ms_pair, by_path["mono_stepwise"], dT_step = paired_loops(
@@ -1941,16 +2288,50 @@ def main() -> None:
     # (a copy from pageable host memory syncs, so nothing is shipped inside)
     n = SYNC_FRAMES
     d_grays, d_masks, d_counts = (x[1:1 + n].to(dev) for x in (r_grays, r_masks, r_counts))
-    d_K, d_resets = r_K.to(dev), resets[:n].to(dev)
+    d_K = r_K.to(dev)
     state_r = rgbd_start(dev)
     syncs_rgbd = count_syncs(lambda: rgbd_run_raw(state_r, d_grays, d_masks, d_counts, d_K,
                                                   cfg_r, depth_scale=DEPTH_SCALE))
-    state_m = init(dev)
-    syncs_mono = count_syncs(lambda: monocular_run(state_m, grays[1:1 + n], masks[1:1 + n], K,
-                                                   cfg, d_resets))
-    phase("syncs", f"per frame over {n} frames: rgbd {syncs_rgbd / n:g}, mono {syncs_mono / n:g}")
-    if syncs_rgbd != 0 or syncs_mono != n:
-        raise AssertionError("host syncs: expected none on rgbd and one per mono frame")
+    # The whole 48-frame mono run (17 promotions): the keyframe decision stays
+    # on the device.  With BA, one per frame: the ba phase counts those.
+    mono_out, state_m, d_resets = [], init(dev), resets[:N_FRAMES].to(dev)
+    syncs_mono = count_syncs(lambda: mono_out.append(monocular_run(
+        state_m, grays[1:1 + N_FRAMES], masks[1:1 + N_FRAMES], K, cfg, d_resets)[1]))
+    kf_sync = int(mono_out[0].is_keyframe.sum())
+    phase("syncs", f"per frame: rgbd {syncs_rgbd / n:g} over {n} frames, mono {syncs_mono / N_FRAMES:g} "
+                   f"over {N_FRAMES} frames with {kf_sync} promotions")
+    if syncs_rgbd != 0 or syncs_mono != 0 or kf_sync == 0:
+        raise AssertionError("host syncs: expected none on rgbd and none on mono")
+
+    # 8b. one step of each path captured in a CUDA graph and replayed
+    # (on the state after frame nxt, a promotion: the next frame is no
+    # keyframe, the ones after it are)
+    _, K_m, (g_m, m_m) = _cull_chunk(cfg, K, grays[nxt:nxt + 1 + GRAPH_REPLAYS],
+                                     masks[nxt:nxt + 1 + GRAPH_REPLAYS])
+    cfg_m = dataclasses.replace(cfg, pyramid=dataclasses.replace(cfg.pyramid, culls=0))
+    r_m = resets[nxt - 1:nxt + GRAPH_REPLAYS].to(dev)
+    after, first_step = monocular_step(warm, g_m[0], m_m[0], K_m, cfg_m, r_m[0])
+    if not bool(first_step.is_keyframe):
+        raise AssertionError("graphs: frame nxt is no promotion")
+    g_m, m_m, r_m = g_m[1:], m_m[1:], r_m[1:]
+    mono_in = (g_m[0].clone(), m_m[0].clone(), r_m[0].clone())
+    cfg_rc, K_r, (g_r, m_r, c_r) = _cull_chunk(
+        cfg_r, r_K.to(dev), *(x[1:1 + GRAPH_REPLAYS].to(dev) for x in (r_grays, r_masks, r_counts)))
+    d_r, s_r = raw_depth(c_r, DEPTH_SCALE)
+    rgbd_in = (g_r[0].clone(), m_r[0].clone(), d_r[0].clone(), s_r[0].clone())
+    state_g = rgbd_start(dev)
+    graphs = {
+        "mono": graph_phase(card_line, "mono", lambda: monocular_step(after, *mono_in[:2], K_m,
+                                                                      cfg_m, mono_in[2]),
+                            mono_in, list(zip(g_m, m_m, r_m)), MONO_KERNELS, cfg.pyramid.levels),
+        "rgbd": graph_phase(card_line, "rgbd", lambda: rgbd_step(state_g, *rgbd_in, K_r, cfg_rc),
+                            rgbd_in, list(zip(g_r, m_r, d_r, s_r)), RGBD_KERNELS,
+                            cfg_r.pyramid.levels),
+    }
+    if len(set(graphs["mono"]["keyframes"])) != 2:
+        raise AssertionError(f"graphs: mono replays of one kind only: {graphs['mono']}")
+    graphs["mono"]["eager_ms_per_frame_main"] = ms_frame
+    graphs["rgbd"]["eager_ms_per_frame_main"] = ms_rgbd
 
     # 9. the CLI, python -m dvo_tpu_torch.run, on PNG sequences
     cli = cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_path,
@@ -1970,6 +2351,15 @@ def main() -> None:
              max_abs_err=max(v[0] for v in fb.values()), ms=ms, plain_ms=plain_ms, **fb_device,
              ms_by_shape={k: v[1] for k, v in fb.items()},
              plain_ms_by_shape={k: v[2] for k, v in fb.items()}), *fb_work))
+    # Each row's launch floor on this card: an empty launch, and a copy of its
+    # bytes (csrc/floor.cu), through the same ctypes route.
+    for k in kernels:
+        fl = framebuild_floor.floor_us(k["bytes"], device_profile)
+        k.update(launch_floor_us=fl["empty_us"], copy_floor_us=fl["copy_us"],
+                 copy_floor_bytes=fl["copy_bytes"])
+        phase("kernels", f"{k['name']}: device {k['device_us']:.2f} us, launch floor "
+                         f"{fl['empty_us']:.2f} us, a copy of its {fl['copy_bytes']} B "
+                         f"{fl['copy_us']:.2f} us, bound {k['bound_us']:.3f} us on {card_line}")
     frames_by_path = {"mono": N_FRAMES, "rgbd": RGBD_FRAMES, "mono_stepwise": STEPWISE_FRAMES,
                       "rgbd_stepwise": STEPWISE_FRAMES, "mono_fields": N_FRAMES,
                       "mono_ba": N_FRAMES}
@@ -1995,11 +2385,11 @@ def main() -> None:
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_frame"] = {path: by_path[path][counter] / n
                                    for path, n in frames_by_path.items() if on_path(path)}
-    print(json.dumps({"kernels": kernels, "gn_loops": gn_loops, "mapper_routes": routes,
-                      "epipolar_lanes": lanes_rows,
+    print(json.dumps(plain_json({"kernels": kernels, "gn_loops": gn_loops, "mapper_routes": routes,
+                      "epipolar_lanes": lanes_rows, "planes": planes, "graphs": graphs,
                       "ms_per_frame": ms_frame, "rgbd_ms_per_frame": ms_rgbd,
-                      "syncs_per_frame": {"mono": syncs_mono / n, "rgbd": syncs_rgbd / n},
-                      "cli": cli, "back_end": back_end, "card": card_line}))
+                      "syncs_per_frame": {"mono": syncs_mono / N_FRAMES, "rgbd": syncs_rgbd / n},
+                      "cli": cli, "back_end": back_end, "card": card_line})))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -237,12 +237,15 @@ extern "C" int dvo_epipolar(const float* fields, const float* born_gray, const f
 }
 
 // stats: 4 int32 (observed, accepted, rejected, aged_out), zeroed here.
+// head, count: the ring's newest slot and live keyframes, one int32 each in
+// device memory (every thread of the crop reads them: one broadcast load).
 extern "C" int dvo_epipolar_fused(
     const float* obj_gray, const uint8_t* obj_mask, const float* ref_depth,
     const float* ref_sigma, const int32_t* ref_age, const float* reset_depth,
     const float* table, const float* born_gray, const float* born_gx, const float* born_gy,
     const uint8_t* born_gmask, float* depth_out, float* sigma_out, int32_t* age_out,
-    int32_t* stats, int h, int w, int capacity, int steps, int head, int count, int crop_x0,
+    int32_t* stats, const int32_t* head, const int32_t* count, int h, int w, int capacity,
+    int steps, int crop_x0,
     int crop_x1, int crop_y0, int crop_y1, float min_search_depth, float match_thresh,
     float big_ssd, float epi_sigma2, float lum_2sigma2, float accept_d_lo, float accept_d_hi,
     float accept_s_lo, float accept_s_hi, float gain_ramp, float reset_sigma, void* stream) {

@@ -118,7 +118,8 @@ struct Raw {
   const int32_t* ref_age;
   const float* reset_depth;
   const float* table;
-  int head, count;
+  const int32_t* head;   // the ring's newest slot and live keyframes, () int32
+  const int32_t* count;  // on the device: no host read before the launch
   int crop_x0, crop_x1, crop_y0, crop_y1;
   float min_search_depth;
 };
@@ -180,13 +181,15 @@ __device__ __forceinline__ Pixel prepare(const Raw& in, int p, int h, int w, int
   const int oyc = clampi(oy, 0, h - 1);
   px.obj_v = in.obj_gray[oyc * w + oxc];
   const bool obj_ok = in.obj_mask[oyc * w + oxc] != 0;
-  const bool aged_ok = px.ref_age < in.count;
+  const int head = __ldg(in.head);
+  const int count = __ldg(in.count);
+  const bool aged_ok = px.ref_age < count;
   *aged_out = crop && !aged_ok;
   const bool pix_ok = crop && in_obj && o.in_front && obj_ok && aged_ok;
 
   // 2. born keyframe: slot = (head - clamp(age)) mod capacity (history.born_slot)
-  const int age = clampi(px.ref_age, 0, in.count > 1 ? in.count - 1 : 0);
-  px.slot = (((in.head - age) % capacity) + capacity) % capacity;
+  const int age = clampi(px.ref_age, 0, count > 1 ? count - 1 : 0);
+  px.slot = (((head - age) % capacity) + capacity) % capacity;
   float E[15];
 #pragma unroll
   for (int i = 0; i < 15; ++i) E[i] = __ldg(in.table + (2 + px.slot) * kTableRow + i);

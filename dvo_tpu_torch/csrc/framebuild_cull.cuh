@@ -4,49 +4,29 @@
 // ceil(h0 / 2^t) x ceil(w0 / 2^t) pixels, the point samples
 // plane[y * 2^t, x * 2^t] (dvo_tpu/ops/image.py cull_image, reference
 // frame.cpp:39-61).
+//
+// Both kernels run one thread per base pixel (y, x) on a 2D grid: the
+// pixel is the sample of level t exactly when y and x are multiples of 2^t,
+// so a thread writes level 0 and every coarser level it is a sample of
+// (`top_level`), and no thread searches for its level.
 #pragma once
 
 #include "dvo_kernels.h"
 
 namespace dvo {
 
+constexpr int kMaxLevels = 6;   // levels a launch takes (the coarse taps are prefetched)
+constexpr int kBlockX = 32;     // a warp's 32 consecutive base pixels of one row
+constexpr int kBlockY = 4;      // 150 blocks at 120x160, 424 at 212x256
+
 __device__ __forceinline__ int level_height(int h0, int t) { return (h0 + (1 << t) - 1) >> t; }
 __device__ __forceinline__ int level_width(int w0, int t) { return (w0 + (1 << t) - 1) >> t; }
 
-struct LevelPixel {
-  int t, ht, wt;  // the level and its size
-  int y, x;       // the pixel in the level
-};
-
-// The level and pixel of element p of a plane kind's buffer.
-__device__ __forceinline__ LevelPixel locate(int p, int h0, int w0, int levels) {
-  LevelPixel o;
-  int off = 0;
-  for (o.t = levels - 1; o.t >= 0; --o.t) {
-    o.ht = level_height(h0, o.t);
-    o.wt = level_width(w0, o.t);
-    if (p < off + o.ht * o.wt) break;
-    off += o.ht * o.wt;
-  }
-  const int q = p - off;
-  o.y = q / o.wt;
-  o.x = q - o.y * o.wt;
-  return o;
-}
-
-// The cull as a scatter: base pixel (y, x) holding `value` goes to every
-// level t with y % 2^t == 0 and x % 2^t == 0, at (y >> t, x >> t) of that
-// level's part of `plane`.
-__device__ __forceinline__ void cull_store(float* __restrict__ plane, float value, int y, int x,
-                                           int h0, int w0, int levels) {
-  int off = 0;
-  for (int t = levels - 1; t >= 0; --t) {
-    const int ht = level_height(h0, t);
-    const int wt = level_width(w0, t);
-    const int step = (1 << t) - 1;
-    if ((y & step) == 0 && (x & step) == 0) plane[off + (y >> t) * wt + (x >> t)] = value;
-    off += ht * wt;
-  }
+// The coarsest level base pixel (y, x) is a sample of.
+__device__ __forceinline__ int top_level(int y, int x, int levels) {
+  int top = 0;
+  while (top + 1 < levels && ((y | x) & ((2 << top) - 1)) == 0) ++top;
+  return top;
 }
 
 }  // namespace dvo

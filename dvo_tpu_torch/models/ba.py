@@ -46,6 +46,7 @@ import torch
 
 from dvo_tpu_torch import lie
 from dvo_tpu_torch.config import BAConfig
+from dvo_tpu_torch.models.history import host_ints
 from dvo_tpu_torch.ops.sampling import bilinear_dense, bilinear_masked
 from dvo_tpu_torch.ops.warp import pixel_grid
 
@@ -78,20 +79,23 @@ def window_from_reference(obj, device) -> BAWindow:
                        for f in dataclasses.fields(BAWindow)})
 
 
-def window_slots(history, m: int) -> list:
+def window_slots(history, m: int, ring=None) -> list:
     """Ring slots of the newest ``m`` keyframes, oldest first, as Python
-    ints (the ring's ``head`` and ``count`` are host values): the index map
-    shared by ``window_from_history`` and the write-back.  Ages beyond the
-    live window clamp to the oldest retained keyframe, as ``born_slot``."""
-    oldest = max(history.count - 1, 0)
-    return [(history.head - min(age, oldest)) % history.capacity
-            for age in range(m - 1, -1, -1)]
+    ints: the index map shared by ``window_from_history`` and the
+    write-back.  ``ring``: the ring's (head, count) as host ints when the
+    caller has them, else they are read in one copy (``host_ints``).  Ages
+    beyond the live window clamp to the oldest retained keyframe, as
+    ``born_slot``."""
+    head, count = host_ints(history) if ring is None else ring
+    oldest = max(count - 1, 0)
+    return [(head - min(age, oldest)) % history.capacity for age in range(m - 1, -1, -1)]
 
 
-def window_from_history(history, K, m: int) -> BAWindow:
+def window_from_history(history, K, m: int, ring=None) -> BAWindow:
     """The newest ``m`` keyframes of the ring (oldest first) as a dense
-    window: one stack per plane kind, no host read."""
-    slots = window_slots(history, m)
+    window: one stack per plane kind; no host read when ``ring`` = (head,
+    count) is given (``window_slots``)."""
+    slots = window_slots(history, m, ring)
     take = lambda arr: torch.stack([arr[s] for s in slots])
     return BAWindow(
         gray=take(history.gray), mask=take(history.mask),

@@ -48,16 +48,29 @@ class Scene:
         return tuple(self.gray.shape)
 
 
+def device_int(value, device) -> torch.Tensor:
+    """``value`` (a Python or NumPy int, or a tensor of one element) as a
+    0-d int32 tensor on ``device``; such a tensor passes through.  A Python
+    int becomes a fill on the device, not a host-to-device copy."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), int(value), dtype=torch.int32, device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class Frame:
-    """Pyramid + pose (reference frame.hpp:72-144).  ``frame_id`` is a
-    Python int: it is known on the host."""
+    """Pyramid + pose (reference frame.hpp:72-144).  ``frame_id`` is a 0-d
+    int32 tensor on the frame's device, as in ``dvo_tpu`` (a Python int is
+    converted): the monocular step's keyframe decision reads it there."""
 
     scenes: Tuple[Scene, ...]   # coarsest first
     xi: torch.Tensor            # (6,) world pose twist
     relative_xi: torch.Tensor   # (6,) twist vs the reference keyframe
     age: torch.Tensor           # (H, W) int32 at the base level
-    frame_id: int
+    frame_id: torch.Tensor      # () int32
+
+    def __post_init__(self):
+        object.__setattr__(self, "frame_id", device_int(self.frame_id, self.xi.device))
 
     @property
     def base(self) -> Scene:
@@ -104,7 +117,7 @@ def _frame(gray, mask, K, levels, frame_id, depth, sigma, with_grads) -> Frame:
         xi=torch.zeros(6, dtype=torch.float32, device=dev),
         relative_xi=torch.zeros(6, dtype=torch.float32, device=dev),
         age=torch.zeros((h, w), dtype=torch.int32, device=dev),
-        frame_id=int(frame_id),
+        frame_id=frame_id,
     )
 
 
@@ -154,6 +167,59 @@ def with_gradients(frame: Frame) -> Frame:
             s = dataclasses.replace(s, gx=gx, gy=gy, gmask=mx & my)
         scenes.append(s)
     return dataclasses.replace(frame, scenes=tuple(scenes))
+
+
+def _one_buffer(views) -> Optional[torch.Tensor]:
+    """The 1-D buffer that per-level planes are back-to-back views of (the
+    frame-build kernel's layout, ``ops/cuda/framebuild``), or None when they
+    are not: separate tensors (the plain build, a loaded state)."""
+    first = views[0]
+    ptr, end = first.untyped_storage().data_ptr(), first.storage_offset()
+    for v in views:
+        if not v.is_contiguous() or v.untyped_storage().data_ptr() != ptr \
+                or v.storage_offset() != end:
+            return None
+        end += v.numel()
+    return first.as_strided((end - first.storage_offset(),), (1,))
+
+
+def _select_planes(flag, a_views, b_views):
+    """Per-level ``where(flag, a, b)`` of two pyramids of one shape: one
+    ``torch.where`` over the buffers when both lie back to back in one (the
+    card's frames), then the same per-level views of the result; else one
+    per level."""
+    a_buf, b_buf = _one_buffer(a_views), _one_buffer(b_views)
+    if a_buf is None or b_buf is None:
+        return [torch.where(flag, a, b) for a, b in zip(a_views, b_views)]
+    out, off = torch.where(flag, a_buf, b_buf), 0
+    views = []
+    for v in a_views:
+        views.append(out[off:off + v.numel()].view(v.shape))
+        off += v.numel()
+    return views
+
+
+def select_frame(flag: torch.Tensor, a: Frame, b: Frame) -> Frame:
+    """``a`` where the device bool ``flag`` holds, else ``b``, with no host
+    read: the gray, mask and gradient planes of every level, ``K``, the
+    poses, ``age`` and ``frame_id``.  Depth and sigma are selected where both
+    frames have them and are None otherwise (the monocular step replaces
+    them right after).  Both frames need the same pyramid shape and their
+    gradients (``with_gradients``)."""
+    planes = {}
+    for name in ("gray", "mask", "gx", "gy", "gmask", "depth", "sigma"):
+        av = [getattr(s, name) for s in a.scenes]
+        bv = [getattr(s, name) for s in b.scenes]
+        if any(v is None for v in av + bv):
+            planes[name] = [None] * a.levels
+        else:
+            planes[name] = _select_planes(flag, av, bv)
+    scenes = tuple(
+        Scene(K=torch.where(flag, sa.K, sb.K), **{k: v[i] for k, v in planes.items()})
+        for i, (sa, sb) in enumerate(zip(a.scenes, b.scenes)))
+    pick = lambda x, y: torch.where(flag, x, y)
+    return Frame(scenes=scenes, xi=pick(a.xi, b.xi), relative_xi=pick(a.relative_xi, b.relative_xi),
+                 age=pick(a.age, b.age), frame_id=pick(a.frame_id, b.frame_id))
 
 
 def with_pose(frame: Frame, relative_xi: torch.Tensor, ref_xi: torch.Tensor) -> Frame:

@@ -2,18 +2,23 @@
 
 Keyframes live in stacked (C, H, W) tensors; the keyframe a pixel's depth
 was born in is ``slot = (head - age) mod C`` (reference frame.hpp:176).
-``head`` and ``count`` are Python ints: they change only on promotion,
-which is a host decision in the port.  Updates copy the stacks (a few MB
-per promotion) so that an older state stays valid.
+``head`` and ``count`` are 0-d int32 tensors on the ring's device, as in
+``dvo_tpu``: the monocular step decides promotion on the device, so a push
+takes a device flag and writes its slot with ``torch.where`` — no host
+read.  Updates copy the stacks (a few MB per step) so that an older state
+stays valid.  ``host_ints`` reads ``head`` and ``count`` to the host in one
+copy, for the host-side consumers (BA's window slots, the pose graph, the
+gallery).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
-from dvo_tpu_torch.models.frame import Frame
+from dvo_tpu_torch.models.frame import Frame, device_int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,8 +32,12 @@ class KeyframeHistory:
     sigma: torch.Tensor   # (C, H, W)
     xi: torch.Tensor      # (C, 6) world pose twists
     kf_id: torch.Tensor   # (C,) int32 frame_id per slot, -1 = never written
-    head: int             # slot of the newest keyframe
-    count: int            # live keyframes (<= C)
+    head: torch.Tensor    # () int32 slot of the newest keyframe (a Python int is converted)
+    count: torch.Tensor   # () int32 live keyframes (<= C)
+
+    def __post_init__(self):
+        for name in ("head", "count"):
+            object.__setattr__(self, name, device_int(getattr(self, name), self.gray.device))
 
     @property
     def capacity(self) -> int:
@@ -52,46 +61,66 @@ class KeyframeHistory:
         )
 
 
-def _set(stack: torch.Tensor, slot: int, value) -> torch.Tensor:
-    out = stack.clone()
-    if isinstance(value, torch.Tensor):
-        out[slot] = value
-    else:
-        out[slot].fill_(value)  # a Python scalar stored with `=` syncs on CUDA
-    return out
+def host_ints(history: KeyframeHistory):
+    """(head, count) as Python ints, read in one device-to-host copy."""
+    head, count = torch.stack([history.head, history.count]).tolist()
+    return head, count
 
 
-def push(history: KeyframeHistory, frame: Frame) -> KeyframeHistory:
+def _selector(history: KeyframeHistory, slot, flag):
+    """(C,) bool: ring slot ``slot`` where ``flag`` holds (None: always)."""
+    sel = torch.arange(history.capacity, device=history.gray.device) == slot
+    return sel if flag is None else sel & flag
+
+
+def _set(stack: torch.Tensor, sel: torch.Tensor, value) -> torch.Tensor:
+    """A new stack: ``value`` in the selected slots, the old entries
+    elsewhere (``torch.where``: never an in-place write, no host read)."""
+    return torch.where(sel.view((-1,) + (1,) * (stack.dim() - 1)), value, stack)
+
+
+def push(history: KeyframeHistory, frame: Frame,
+         flag: Optional[torch.Tensor] = None) -> KeyframeHistory:
     """Append ``frame`` as the newest keyframe (setRefFrame,
-    frame.hpp:152-158); the oldest slot is overwritten once full."""
+    frame.hpp:152-158); the oldest slot is overwritten once full.  With a
+    device bool ``flag`` the push happens only where it holds:
+    ``head' = where(flag, (head + 1) % C, head)``, ``count'`` likewise, and
+    the slot keeps its old entry otherwise."""
     s = frame.base
-    slot = (history.head + 1) % history.capacity
+    slot = torch.remainder(history.head + 1, history.capacity)
+    sel = _selector(history, slot, flag)
+    count = torch.clamp(history.count + 1, max=history.capacity)
+    if flag is not None:
+        slot = torch.where(flag, slot, history.head)
+        count = torch.where(flag, count, history.count)
     return dataclasses.replace(
         history,
-        gray=_set(history.gray, slot, s.gray),
-        mask=_set(history.mask, slot, s.mask),
-        gx=_set(history.gx, slot, s.gx),
-        gy=_set(history.gy, slot, s.gy),
-        gmask=_set(history.gmask, slot, s.gmask),
-        depth=_set(history.depth, slot, s.depth),
-        sigma=_set(history.sigma, slot, s.sigma),
-        xi=_set(history.xi, slot, frame.xi),
-        kf_id=_set(history.kf_id, slot, frame.frame_id),
-        head=slot,
-        count=min(history.count + 1, history.capacity),
+        gray=_set(history.gray, sel, s.gray),
+        mask=_set(history.mask, sel, s.mask),
+        gx=_set(history.gx, sel, s.gx),
+        gy=_set(history.gy, sel, s.gy),
+        gmask=_set(history.gmask, sel, s.gmask),
+        depth=_set(history.depth, sel, s.depth),
+        sigma=_set(history.sigma, sel, s.sigma),
+        xi=_set(history.xi, sel, frame.xi),
+        kf_id=_set(history.kf_id, sel, frame.frame_id),
+        head=slot.to(torch.int32),
+        count=count.to(torch.int32),
     )
 
 
-def refresh_head(history: KeyframeHistory, frame: Frame) -> KeyframeHistory:
+def refresh_head(history: KeyframeHistory, frame: Frame,
+                 flag: Optional[torch.Tensor] = None) -> KeyframeHistory:
     """Write the reference keyframe's current depth, sigma and pose back
-    into its slot before the next keyframe is pushed."""
+    into its slot before the next keyframe is pushed (where ``flag`` holds,
+    when one is given)."""
     s = frame.base
-    slot = history.head
+    sel = _selector(history, history.head, flag)
     return dataclasses.replace(
         history,
-        depth=_set(history.depth, slot, s.depth),
-        sigma=_set(history.sigma, slot, s.sigma),
-        xi=_set(history.xi, slot, frame.xi),
+        depth=_set(history.depth, sel, s.depth),
+        sigma=_set(history.sigma, sel, s.sigma),
+        xi=_set(history.xi, sel, frame.xi),
     )
 
 
@@ -110,5 +139,5 @@ def write_back(history: KeyframeHistory, slots, xi, depth) -> KeyframeHistory:
 def born_slot(history: KeyframeHistory, age: torch.Tensor) -> torch.Tensor:
     """Ring slot of the keyframe ``age`` promotions before the newest;
     ages beyond the live window clamp to the oldest retained keyframe."""
-    age = torch.clamp(age, 0, max(history.count - 1, 0))
+    age = torch.minimum(torch.clamp(age, min=0), torch.clamp(history.count - 1, min=0))
     return torch.remainder(history.head - age, history.capacity)

@@ -51,6 +51,7 @@ import torch
 
 from dvo_tpu_torch import lie
 from dvo_tpu_torch.models.frame import build_frame_with_depth
+from dvo_tpu_torch.models.history import host_ints
 from dvo_tpu_torch.models.tracker import track
 from dvo_tpu_torch.utils import oracle as _nplie
 from dvo_tpu_torch.utils.metrics import fetch, to_numpy
@@ -267,7 +268,7 @@ def apply_live_correction(state, xi_ref_slot, id_slot, max_id: int, corr):
     return dataclasses.replace(
         state,
         history=dataclasses.replace(hist, xi=new_xi),
-        ref=dataclasses.replace(state.ref, xi=new_xi[hist.head].clone()),
+        ref=dataclasses.replace(state.ref, xi=new_xi.index_select(0, hist.head.view(1))[0]),
     )
 
 
@@ -388,18 +389,21 @@ class PoseGraphHarvester:
         """Harvest this frame's ``StepResult`` (per-frame runner).  Returns a
         corrected ``VOState`` when a periodic refinement fired, else
         None."""
-        if not bool(res.is_keyframe):
+        hist = state.history
+        # The decision and the ring's head and count in one copy.
+        kf, head, _ = torch.stack([res.is_keyframe.to(torch.int32), hist.head,
+                                   hist.count]).tolist()
+        if not kf:
             return None
         node = _Node(frame_idx=frame_idx, T_emit=to_numpy(res.T_world),
                      gray=np.asarray(gray), mask=np.asarray(mask))
-        hist = state.history
         if self.nodes:
             # The tracked relative pose is log(T_i^-1 T_j) (with_pose).
             self._add_edge(len(self.nodes) - 1, len(self.nodes), to_numpy(res.relative_xi),
                            self.W_ODOM)
             # The outgoing keyframe retired at this promotion: its final
             # depth and sigma, for closure re-tracking, are in its slot.
-            slot = (hist.head - 1) % hist.capacity
+            slot = (head - 1) % hist.capacity
             prev = self.nodes[-1]
             prev.depth = fetch(hist.depth[slot])
             prev.sigma = fetch(hist.sigma[slot])
@@ -408,7 +412,7 @@ class PoseGraphHarvester:
         if float(res.ba_cost) >= 0.0 and self.cfg.ba.enabled:
             xi_all = fetch(hist.xi)
             m = min(self.cfg.ba.window, len(self.nodes))
-            self._add_ba_edges([_nplie.se3_exp(xi_all[(hist.head - (m - 1 - a)) % hist.capacity])
+            self._add_ba_edges([_nplie.se3_exp(xi_all[(head - (m - 1 - a)) % hist.capacity])
                                 for a in range(m)])
 
         return self._refine_live(state) if self._refine_due() else None
@@ -595,10 +599,11 @@ class PoseGraphHarvester:
             return None
         # The newest min(count, nodes) nodes occupy slots head, head-1, ...
         hist = state.history
-        live = min(hist.count, len(self.nodes))
+        head, count = host_ints(hist)
+        live = min(count, len(self.nodes))
         xi_arr = fetch(hist.xi).copy()
         for k in range(live):
-            xi_arr[(hist.head - k) % hist.capacity] = xi_ref[len(self.nodes) - 1 - k]
+            xi_arr[(head - k) % hist.capacity] = xi_ref[len(self.nodes) - 1 - k]
         self.live_refinements += 1
         if self.verbose:
             print(f"pose-graph live refinement #{self.live_refinements}: {len(self.nodes)} "
@@ -622,8 +627,9 @@ class PoseGraphHarvester:
         # The newest keyframe never retired: its maps are in the live ring.
         if state is not None and self.nodes[-1].depth is None:
             hist = state.history
-            self.nodes[-1].depth = fetch(hist.depth[hist.head])
-            self.nodes[-1].sigma = fetch(hist.sigma[hist.head])
+            head, _ = host_ints(hist)
+            self.nodes[-1].depth = fetch(hist.depth[head])
+            self.nodes[-1].sigma = fetch(hist.sigma[head])
         self._mine_closures()
         xi_ref, costs = optimize_pose_graph_padded(
             self._node_twists(), self.e_i, self.e_j, self.e_z, self.e_w,

@@ -60,15 +60,48 @@ _SIGNATURES = {
     "dvo_epipolar_threads": ([], _I),
     "dvo_epipolar_pixels": ([], _I),
     "dvo_epipolar": ([_P] * 9 + [_I, _I, _I, _I] + [_F] * 10 + [_P], _I),
-    "dvo_epipolar_fused": ([_P] * 15 + [_I] * 10 + [_F] * 11 + [_P], _I),
+    "dvo_epipolar_fused": ([_P] * 17 + [_I] * 8 + [_F] * 11 + [_P], _I),
     "dvo_framebuild": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "dvo_regularize_cull": ([_P] * 3 + [_I] * 4 + [_F, _F, _P], _I),
+    "dvo_floor_empty": ([_P], _I),
+    "dvo_floor_copy": ([_P, _P, _I, _P], _I),
 }
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def capture_graph(fn, warmup: int = 2):
+    """``fn()`` captured into a CUDA graph (``torch.cuda.graph``) after
+    ``warmup`` eager calls on a side stream.  Returns (its outputs, which
+    every replay rewrites in place; ``replay()``; the launches one replay
+    makes, by counter).  The capture records the kernels ``fn`` launches
+    without running them, so their counts are taken back out of LAUNCHES and
+    added again by every replay: the counters stay launches that ran.  ``fn``
+    must read nothing back to the host: capture raises on a sync."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    before = dict(LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    captured = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    LAUNCHES.update(before)
+
+    def replay():
+        graph.replay()
+        for k, n in captured.items():
+            LAUNCHES[k] += n
+
+    return out, replay, captured
 
 
 def bound_us(nbytes: int, flops: int):

@@ -242,7 +242,7 @@ def epipolar_update(fields, born_gray, born_gx, born_gy, born_gmask,
 
 
 def epipolar_fused(obj_gray, obj_mask, ref_depth, ref_sigma, ref_age, reset_depth, table,
-                   born_gray, born_gx, born_gy, born_gmask, head: int, count: int,
+                   born_gray, born_gx, born_gy, born_gmask, head, count,
                    cfg: MapperConfig = MapperConfig()):
     """The fused entry of ``csrc/epipolar.cu``: the whole depth update of
     CUDA tensors in one launch (it launches or raises; CPU tensors go through
@@ -252,8 +252,10 @@ def epipolar_fused(obj_gray, obj_mask, ref_depth, ref_sigma, ref_age, reset_dept
     ``ref_sigma`` float32 and ``ref_age`` int32: the reference keyframe's
     maps; ``reset_depth``: the depth filter's reset plane; ``table``: the
     (2 + C, 16) pose table of ``models.mapper.pose_table``; the ring stacks
-    (C, H, W); ``head``/``count``: the ring's newest slot and live keyframes.
-    Returns (depth, sigma, age int32, stats (4,) int32: observed, accepted,
+    (C, H, W); ``head``/``count``: the ring's newest slot and live keyframes,
+    0-d int32 tensors on the card, which the kernel reads there (nothing is
+    read back to the host, so the update can be enqueued ahead of the host
+    and captured in a CUDA graph).  Returns (depth, sigma, age int32, stats (4,) int32: observed, accepted,
     rejected, aged_out)."""
     if resolve_device(ref_depth) != "cuda":
         raise ValueError("epipolar_fused takes CUDA tensors; on the CPU use "
@@ -267,6 +269,8 @@ def epipolar_fused(obj_gray, obj_mask, ref_depth, ref_sigma, ref_age, reset_dept
     _build.require(ref_age, "ref_age", torch.int32, (h, w), dev)
     c = _ring_checks(born_gray, born_gx, born_gy, born_gmask, (h, w), dev)
     _build.require(table, "table", torch.float32, (2 + c, TABLE_ROW), dev)
+    _build.require(head, "head", torch.int32, (), dev)
+    _build.require(count, "count", torch.int32, (), dev)
 
     depth = torch.empty((h, w), dtype=torch.float32, device=dev)
     sigma = torch.empty_like(depth)
@@ -276,8 +280,8 @@ def epipolar_fused(obj_gray, obj_mask, ref_depth, ref_sigma, ref_age, reset_dept
         obj_gray.data_ptr(), obj_mask.data_ptr(), ref_depth.data_ptr(), ref_sigma.data_ptr(),
         ref_age.data_ptr(), reset_depth.data_ptr(), table.data_ptr(), born_gray.data_ptr(),
         born_gx.data_ptr(), born_gy.data_ptr(), born_gmask.data_ptr(), depth.data_ptr(),
-        sigma.data_ptr(), age.data_ptr(), stats.data_ptr(), h, w, c, cfg.max_steps + 2,
-        int(head), int(count), cfg.crop_x[0], cfg.crop_x[1], cfg.crop_y[0], cfg.crop_y[1],
+        sigma.data_ptr(), age.data_ptr(), stats.data_ptr(), head.data_ptr(), count.data_ptr(),
+        h, w, c, cfg.max_steps + 2, cfg.crop_x[0], cfg.crop_x[1], cfg.crop_y[0], cfg.crop_y[1],
         cfg.min_search_depth, *_scalars(cfg), _build.stream_handle(dev),
     )
     _build.check(code, "epipolar (fused)")

@@ -17,7 +17,9 @@ pair's.
 The kernel writes each plane kind into one buffer holding all levels back
 to back, and the wrappers return per-level views of it: contiguous views at
 an offset, which the other kernels take as they are.  Nothing in the port
-writes into a pyramid plane, so the aliasing is never visible.
+writes into a pyramid plane, so the aliasing is never visible.  A launch
+takes 1 to ``MAX_LEVELS`` levels: a block's tile is 2**(levels - 1) base
+rows tall (``csrc/framebuild_cull.cuh``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from dvo_tpu_torch.ops.cuda import regularize as _regularize
 from dvo_tpu_torch.ops.image import cull_image, gradients
 
 MAX_VALUES = 3  # value planes one launch carries (gray, depth, sigma)
+MAX_LEVELS = 6  # csrc/framebuild_cull.cuh kMaxLevels
 
 
 def _levels(levels: int):
@@ -100,6 +103,11 @@ def regularize_cull_pyramid_plain(depth, sigma, levels: int,
 
 # ------------------------------------------------------------------- kernel
 
+def _check_levels(levels: int) -> None:
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"levels={levels}; the kernel takes 1 to {MAX_LEVELS}")
+
+
 def _split(buf, sizes):
     """Per-level (h, w) views of one plane kind's buffer."""
     views, off = [], 0
@@ -115,8 +123,7 @@ def _launch(values, mask, levels: int):
     gmask views, else None)."""
     if not 1 <= len(values) <= MAX_VALUES:
         raise ValueError(f"{len(values)} value planes; the kernel takes 1 to {MAX_VALUES}")
-    if not 1 <= levels <= 16:
-        raise ValueError(f"levels={levels}; the kernel takes 1 to 16")
+    _check_levels(levels)
     h0, w0 = values[0].shape
     dev = values[0].device
     for k, v in enumerate(values):
@@ -197,8 +204,7 @@ def regularize_cull_pyramid(depth, sigma, levels: int, cfg: MapperConfig = Mappe
     raises), the plain version for CPU tensors."""
     if resolve_device(depth) == "plain":
         return regularize_cull_pyramid_plain(depth, sigma, levels, cfg)
-    if not 1 <= levels <= 16:
-        raise ValueError(f"levels={levels}; the kernel takes 1 to 16")
+    _check_levels(levels)
     h0, w0 = depth.shape
     dev = depth.device
     _build.require(depth, "depth", torch.float32, (h0, w0), dev)

@@ -196,7 +196,7 @@ def sweep(args, variants=VARIANTS, baseline=None, verbose=False, say=print):
     own = mapper.depth_update(*args)
     torch.cuda.synchronize()
     identical = all(torch.equal(a, b) for a, b in zip(own[:3], want[:3]))
-    say(f"{depth.shape[0]}x{depth.shape[1]}, {hist.count} of {hist.capacity} keyframes: "
+    say(f"{depth.shape[0]}x{depth.shape[1]}, {int(hist.count)} of {hist.capacity} keyframes: "
         f"{int((fields[epipolar.F_BASE_OK] > 0.5).sum())} observing pixels, "
         f"{int(epipolar.marched_samples(fields, cfg))} samples marched, counts {want_stats}; "
         f"the library's own build bit-identical to the plain version: {identical}")

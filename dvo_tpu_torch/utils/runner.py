@@ -4,7 +4,8 @@ monocular, RGB-D and Kinect dual-camera modes.
 
 Host data plane.  Frames are decoded by ``dvo_tpu_torch.native`` (C++ decode,
 undistortion remap and prefetch threads) when its library loads or builds,
-else by PIL and NumPy on the calling thread (``decode_route``); that choice
+else by PIL and NumPy on a pool of ``PIL_THREADS`` threads, in order, at
+most ``PIL_AHEAD`` frames ahead of the caller (``decode_route``); that choice
 is the runner's only fallback.  The undistortion map is composed with the
 ``2**culls`` pre-cull stride (``_composed_cull_map``), so frames arrive at
 the tracking base resolution and the device runs with ``culls=0``.
@@ -22,10 +23,10 @@ refilled only after the event recorded behind its last copy has completed
 (``_Staging``).  The validity mask is constant per rig and goes to the
 device once.  A chunk's results are packed on the device into one (N, D)
 float32 tensor, copied into pinned memory without blocking, and read on the
-host only after the NEXT chunk has been dispatched (``_ChunkDrain``).  On
-the RGB-D paths nothing inside a chunk's dispatch waits for the device; the
-monocular step still reads its keyframe decision once per frame
-(``models/odometry.py``), so there only the decode threads overlap.
+host only after the NEXT chunk has been dispatched (``_ChunkDrain``).
+Nothing inside a chunk's dispatch waits for the device: the monocular step
+decides promotion on the device (``models/odometry.py``; with ``--ba`` it
+reads the decision once per frame).
 
 Pose graph (``run_monocular(pose_graph=True)``).  On the per-frame path the
 harvester sees every step's result and state.  On the chunked path it sees
@@ -42,10 +43,12 @@ Torch cannot replay ``jax.random``, so a monocular trajectory differs from
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -244,7 +247,8 @@ def _run_chunks(n_steps, chunk, staging, fill_row, dispatch, on_frame, on_chunk_
 def decode_route() -> str:
     """``"native"`` when ``dvo_tpu_torch.native``'s library loads, or builds
     (g++ and libpng): C++ decode and remap on prefetch threads.  Otherwise
-    ``"pil"``: PIL and NumPy, one frame at a time on the calling thread."""
+    ``"pil"``: PIL and NumPy on a thread pool (``_pooled``; PIL releases the
+    GIL while it decodes)."""
     from dvo_tpu_torch import native
 
     try:
@@ -285,6 +289,43 @@ def _composed_cull_map(srcmap, first_path, st: int):
     return np.ascontiguousarray(np.stack([gx, gy], axis=-1))
 
 
+# The PIL route's pool: threads, and frames decoded ahead of the caller (the
+# bound on decoded frames held at once).  PIL_THREADS = 1 decodes on the
+# calling thread.
+PIL_THREADS = max(2, min(8, os.cpu_count() or 2))
+PIL_AHEAD = 2 * PIL_THREADS
+
+
+def _pooled(fn, items, threads: int, ahead: int):
+    """Yield ``fn(item)`` for every item, in the items' order, computed on a
+    pool of ``threads`` threads with at most ``ahead`` items submitted and
+    not yet yielded.  An exception raised by ``fn`` reaches the caller when
+    its item's turn comes; work not yet started is cancelled when the caller
+    stops early or an item fails."""
+    items = iter(items)
+    pool = ThreadPoolExecutor(max_workers=threads, thread_name_prefix="pil-decode")
+    try:
+        pending = collections.deque(pool.submit(fn, it) for _, it in zip(range(ahead), items))
+        while pending:
+            out = pending.popleft().result()
+            for it in items:
+                pending.append(pool.submit(fn, it))
+                break
+            yield out
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _decode_pil(path, scale, srcmap):
+    """One frame on the PIL route: (image float32 * scale, valid bool)."""
+    img = decode_gray(path) * scale
+    if srcmap is not None:
+        img, valid = remap_nearest(img, srcmap, border=0.0)
+    else:
+        valid = np.ones_like(img, bool)
+    return img.astype(np.float32), valid
+
+
 def _image_stream(paths, scale, srcmap, loaders: list):
     """Yield (image float32 * scale, valid bool) per path, decoded (and
     remapped) by ``decode_route()``.  A native loader is appended to
@@ -298,13 +339,11 @@ def _image_stream(paths, scale, srcmap, loaders: list):
         for _idx, img, valid in loader:
             yield img, valid
         return
-    for p in paths:
-        img = decode_gray(p) * scale
-        if srcmap is not None:
-            img, valid = remap_nearest(img, srcmap, border=0.0)
-        else:
-            valid = np.ones_like(img, bool)
-        yield img.astype(np.float32), valid
+    decode = functools.partial(_decode_pil, scale=scale, srcmap=srcmap)
+    if PIL_THREADS <= 1:
+        yield from map(decode, paths)
+    else:
+        yield from _pooled(decode, paths, PIL_THREADS, PIL_AHEAD)
 
 
 def _close(loaders) -> None:

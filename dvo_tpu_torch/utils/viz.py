@@ -142,7 +142,10 @@ def keyframe_gallery(history) -> np.ndarray:
     """The ring's live slots, newest first — the reference's SHOW_KEYFRAME
     panel (system.hpp:7,34-42) as an image.  Each row: gray | depth(sigma)
     | sigma of one keyframe.  One host copy of each plane stack."""
-    count, head, cap = history.count, history.head, history.capacity
+    from dvo_tpu_torch.models.history import host_ints
+
+    head, count = host_ints(history)
+    cap = history.capacity
     gray, mask, depth, sigma = (t.detach().cpu().numpy() for t in
                                 (history.gray, history.mask, history.depth, history.sigma))
     rows = []

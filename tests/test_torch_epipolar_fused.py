@@ -310,8 +310,8 @@ class EmulatedLibrary:
         return self._run(lambda y, x: (load_fields(planes, y, x, capacity), False), ring, out, s)
 
     def dvo_epipolar_fused(self, obj_gray, obj_mask, ref_depth, ref_sigma, ref_age, reset_depth,
-                           table, gray, gx, gy, gmask, depth, sigma, age, stats, h, w, capacity,
-                           steps, head, count, cx0, cx1, cy0, cy1, min_search_depth, *rest):
+                           table, gray, gx, gy, gmask, depth, sigma, age, stats, head, count,
+                           h, w, capacity, steps, cx0, cx1, cy0, cy1, min_search_depth, *rest):
         *floats, stream = rest
         assert len(floats) == len(_SCALARS)
         f = ctypes.c_float
@@ -322,7 +322,10 @@ class EmulatedLibrary:
             ref_depth=_arr(ref_depth, (h, w), f), ref_sigma=_arr(ref_sigma, (h, w), f),
             ref_age=_arr(ref_age, (h, w), ctypes.c_int32),
             reset_depth=_arr(reset_depth, (h, w), f),
-            table=_arr(table, (2 + capacity, epipolar.TABLE_ROW), f), head=head, count=count,
+            table=_arr(table, (2 + capacity, epipolar.TABLE_ROW), f),
+            # head and count: one int32 each in device memory (pointers)
+            head=int(_arr(head, (1,), ctypes.c_int32)[0]),
+            count=int(_arr(count, (1,), ctypes.c_int32)[0]),
             crop_x0=cx0, crop_x1=cx1, crop_y0=cy0, crop_y1=cy1,
             min_search_depth=min_search_depth)
         return self._run(lambda y, x: prepare(raw, y, x, h, w, capacity), ring, out, s)
@@ -460,8 +463,8 @@ def test_field_arithmetic_equals_epipolar_fields(name, capacity, count, max_age,
     raw = SimpleNamespace(
         obj_gray=obj.gray.numpy(), obj_mask=obj.mask.numpy(), ref_depth=depth.numpy(),
         ref_sigma=sigma.numpy(), ref_age=age.numpy(), reset_depth=reset.numpy(),
-        table=tmapper.pose_table(obj.K, obj_xi, rel_xi, hist).numpy(), head=hist.head,
-        count=hist.count, crop_x0=CFG.crop_x[0], crop_x1=CFG.crop_x[1], crop_y0=CFG.crop_y[0],
+        table=tmapper.pose_table(obj.K, obj_xi, rel_xi, hist).numpy(), head=int(hist.head),
+        count=int(hist.count), crop_x0=CFG.crop_x[0], crop_x1=CFG.crop_x[1], crop_y0=CFG.crop_y[0],
         crop_y1=CFG.crop_y[1], min_search_depth=CFG.min_search_depth)
     names = ("sx", "sy", "dx", "dy", "length", "obj_v", "slot", "prior_d", "prior_s", "dmin",
              "dmax", "r3q", "krq0", "krq1", "krq2", "ttz", "kt0", "kt1", "kt2", "ref_depth",
@@ -502,6 +505,22 @@ def test_fused_launch_equals_the_plain_route(name, capacity, count, max_age, lan
                                                       "aged_out")]
     assert stats(got[3]) == stats(want[3])
     assert stats(want[3])[0] > 20 and stats(want[3])[1] > 0
+
+
+@pytest.mark.parametrize("h,w", [(23, 33), (21, 29)])
+def test_fused_launch_equals_the_plain_route_at_odd_shapes(h, w, rng, launch_route):
+    """The same at odd heights and widths (the second: the crop reaches the
+    last row and column), where no row starts on a block's boundary."""
+    args = _state(rng, h, w, 4, 3, 5)
+    want = tmapper.depth_update_by_fields(*args, CFG)
+    launch_route(8)
+    got = tmapper.depth_update(*args, CFG)
+    assert _build.LAUNCHES["epipolar"] == 1
+    for g, wnt in zip(got[:3], want[:3]):
+        assert g.dtype == wnt.dtype and torch.equal(g, wnt)
+    stats = lambda st: [int(getattr(st, k)) for k in ("observed", "accepted", "rejected",
+                                                      "aged_out")]
+    assert stats(got[3]) == stats(want[3]) and stats(want[3])[0] > 20
 
 
 @pytest.mark.parametrize("lanes", [8])

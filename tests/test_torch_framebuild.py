@@ -5,8 +5,10 @@ the Pallas kernel (interpret mode) and the XLA build bit for bit.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them equal to
 the plain versions there).  Here the wrappers are driven through a NumPy
-transcription of the kernels' per-thread index arithmetic, which checks the
-wrappers' one-buffer-per-plane-kind layout and their per-level views.  The
+transcription of the kernels, thread by thread (one base pixel each,
+writing every level it is a sample of), which checks the kernels' index
+arithmetic and the wrappers' one-buffer-per-plane-kind layout and per-level
+views.  The
 regularize-and-cull launch (``regularize_cull_pyramid``,
 ``with_regularized_depth``) is held equal to the three steps it replaces
 (``with_depth``, ``regularize``, ``with_depth``) and, at the regulariser's
@@ -150,76 +152,112 @@ def test_with_depth_matches_dvo_tpu():
 
 # ------------------------------------------- the wrapper's launch, emulated
 
+F32 = np.float32
+
+
+def _arr(ptr, n, ctype):
+    return np.ctypeslib.as_array((ctype * n).from_address(ptr))
+
+
+def _levels_of(y, x, levels, h0, w0, total):
+    """``top_level`` and the per-level offsets: (t, level height, width,
+    offset) of every level base pixel (y, x) is a sample of, finest first."""
+    off, t = total, 0
+    while True:
+        ht, wt = (h0 + (1 << t) - 1) >> t, (w0 + (1 << t) - 1) >> t
+        off -= ht * wt
+        yield t, ht, wt, off
+        if t + 1 >= levels or (y | x) & ((2 << t) - 1):
+            return
+        t += 1
+
+
+def _aten_sqrt(v):
+    """float32 square root as ATen's vectorised CPU kernel takes it: the
+    plain version's (it is not correctly rounded for a few inputs in a
+    thousand; ``sqrtf`` on the card and ``torch.sqrt`` of a CUDA tensor are)."""
+    return torch.sqrt(torch.full((16,), float(v), dtype=torch.float32))[0].numpy()
+
+
+TAPS = ((-1, 0), (1, 0), (0, 1), (0, -1))   # left, right, down, up
+
+
+def _regularize_pixel(d, s, y, x, gain_ramp, max_depth):
+    """``dvo::regularize_pixel`` in float32 scalars: the ten loads first
+    (clamped addresses, an ``in`` flag per tap), then ``fuse_taps``."""
+    h, w = d.shape
+    taps = [(0 <= x + dx < w and 0 <= y + dy < h,
+             d[min(max(y + dy, 0), h - 1), min(max(x + dx, 0), w - 1)],
+             s[min(max(y + dy, 0), h - 1), min(max(x + dx, 0), w - 1)]) for dx, dy in TAPS]
+    mu, sg = d[y, x], s[y, x]
+    for inside, nd, ns in taps:
+        if not inside:
+            continue
+        diff = abs(nd - mu)
+        m = min(nd, diff)
+        gain = F32(0.5) + m / gain_ramp * F32(0.5) if m < gain_ramp else F32(1.0)
+        if not diff <= gain * max(sg, ns):
+            continue
+        v1, v2 = sg * sg, ns * ns
+        v = v1 + v2
+        safe_v = F32(1.0) if v < F32(1e-12) else v
+        mu = (v2 * mu + v1 * nd) / safe_v
+        sg = _aten_sqrt(v1 * v2 / safe_v)
+    return min(mu, max_depth)
+
+
 class _EmulatedLibrary:
-    """``dvo_framebuild`` transcribed to NumPy, thread by thread: what
-    ``csrc/framebuild.cu`` computes for output pixel p."""
+    """The two entries of ``csrc/framebuild.cu`` transcribed to NumPy, thread
+    by thread: each base pixel's loads (clamped neighbour addresses), then
+    level 0 and every coarser level the pixel is a sample of."""
 
     def dvo_framebuild(self, v0, v1, v2, mask, vals, mask_out, gx_out, gy_out, gmask_out,
                        h0, w0, levels, n_val, total, stream):
-        def arr(ptr, n, ctype):
-            return np.ctypeslib.as_array((ctype * n).from_address(ptr))
-
+        assert 1 <= levels <= tfb.MAX_LEVELS and 1 <= n_val <= tfb.MAX_VALUES
         f, u8 = ctypes.c_float, ctypes.c_uint8
-        ins = [arr(p, h0 * w0, f) for p in (v0, v1, v2)[:n_val]]
-        vals = arr(vals, n_val * total, f)
+        ins = [_arr(p, h0 * w0, f).reshape(h0, w0) for p in (v0, v1, v2)[:n_val]]
+        vals = _arr(vals, n_val * total, f)
         if mask is not None:
-            m = arr(mask, h0 * w0, u8)
-            mo, gmo = arr(mask_out, total, u8), arr(gmask_out, total, u8)
-            gxo, gyo = arr(gx_out, total, f), arr(gy_out, total, f)
-        for p in range(total):
-            t, off = levels - 1, 0
-            while True:
-                ht, wt = (h0 + (1 << t) - 1) >> t, (w0 + (1 << t) - 1) >> t
-                if p < off + ht * wt:
-                    break
-                off += ht * wt
-                t -= 1
-            y, x = divmod(p - off, wt)
-            row = (y << t) * w0
-            base = row + (x << t)
-            for k in range(n_val):
-                vals[k * total + p] = ins[k][base]
-            if mask is None:
-                continue
-            mo[p] = m[base] != 0
-            in_x, in_y = 1 <= x <= wt - 2, 1 <= y <= ht - 2
-            gx = gy = np.float32(0)
-            ok = in_x and in_y
-            if in_x:
-                r, l = row + ((x + 1) << t), row + ((x - 1) << t)
-                gx = ins[0][r] - ins[0][l]
-                ok = ok and m[r] != 0 and m[l] != 0
-            if in_y:
-                d, u = ((y + 1) << t) * w0 + (x << t), ((y - 1) << t) * w0 + (x << t)
-                gy = ins[0][d] - ins[0][u]
-                ok = ok and m[d] != 0 and m[u] != 0
-            gxo[p], gyo[p], gmo[p] = gx, gy, ok
+            m = _arr(mask, h0 * w0, u8).reshape(h0, w0)
+            mo, gmo = _arr(mask_out, total, u8), _arr(gmask_out, total, u8)
+            gxo, gyo = _arr(gx_out, total, f), _arr(gy_out, total, f)
+        for y in range(h0):
+            for x in range(w0):
+                for t, ht, wt, off in _levels_of(y, x, levels, h0, w0, total):
+                    yl, xl = y >> t, x >> t
+                    p = off + yl * wt + xl
+                    for k in range(n_val):
+                        vals[k * total + p] = ins[k][y, x]
+                    if mask is None:
+                        continue
+                    s = 1 << t
+                    taps = ((y, min(x + s, w0 - 1)), (y, max(x - s, 0)),
+                            (min(y + s, h0 - 1), x), (max(y - s, 0), x))
+                    g = [ins[0][q] for q in taps]
+                    mm = [m[q] != 0 for q in taps]
+                    in_x, in_y = 1 <= xl <= wt - 2, 1 <= yl <= ht - 2
+                    mo[p] = m[y, x] != 0
+                    gxo[p] = g[0] - g[1] if in_x else F32(0)
+                    gyo[p] = g[2] - g[3] if in_y else F32(0)
+                    gmo[p] = in_x and in_y and all(mm)
         return 0
 
     def dvo_regularize_cull(self, depth, sigma, vals, h0, w0, levels, total, gain_ramp,
                             max_depth, stream):
-        """``regularize_cull_kernel``, thread by thread: the regulariser's
-        value for base pixel p (taken from the plain version: its arithmetic
-        is ``csrc/regularize_pixel.cuh``'s, which the card holds equal), then
-        ``cull_store`` of it and of sigma to every level the pixel is on."""
+        """``regularize_cull_kernel``, thread by thread: the base pixel's
+        regularised depth and its sigma, written to every level it is a
+        sample of."""
+        assert 1 <= levels <= tfb.MAX_LEVELS
         f = ctypes.c_float
-        d = np.ctypeslib.as_array((f * (h0 * w0)).from_address(depth)).reshape(h0, w0)
-        s = np.ctypeslib.as_array((f * (h0 * w0)).from_address(sigma)).reshape(h0, w0)
-        out = np.ctypeslib.as_array((f * (2 * total)).from_address(vals))
-        cfg = MapperConfig()
-        assert (np.float32(gain_ramp), np.float32(max_depth)) == (
-            np.float32(cfg.depth_filter.gain_ramp), np.float32(cfg.max_depth))
-        reg = treg.regularize_plain(torch.from_numpy(d), torch.from_numpy(s), cfg).numpy()
+        d = _arr(depth, h0 * w0, f).reshape(h0, w0)
+        s = _arr(sigma, h0 * w0, f).reshape(h0, w0)
+        out = _arr(vals, 2 * total, f)
         for y in range(h0):
             for x in range(w0):
-                off = 0
-                for t in range(levels - 1, -1, -1):
-                    ht, wt = (h0 + (1 << t) - 1) >> t, (w0 + (1 << t) - 1) >> t
-                    step = (1 << t) - 1
-                    if (y & step) == 0 and (x & step) == 0:
-                        q = off + (y >> t) * wt + (x >> t)
-                        out[q], out[total + q] = reg[y, x], s[y, x]
-                    off += ht * wt
+                r = _regularize_pixel(d, s, y, x, F32(gain_ramp), F32(max_depth))
+                for t, _, wt, off in _levels_of(y, x, levels, h0, w0, total):
+                    p = off + (y >> t) * wt + (x >> t)
+                    out[p], out[total + p] = r, s[y, x]
         return 0
 
 
@@ -279,6 +317,35 @@ def test_regularize_cull_launch_matches_plain(emulated, h, w, levels):
     steps = tfb.cull_pyramid_pair_plain(treg.regularize_plain(depth, sigma), sigma, levels)
     for (wd, ws), (sd, ss) in zip(want, steps):
         assert torch.equal(wd, sd) and torch.equal(ws, ss)
+
+
+@pytest.mark.parametrize("h,w,levels", [(5, 3, 3), (4, 4, 3), (1, 7, 2), (9, 1, 4), (13, 37, 6),
+                                         (33, 65, 5)])
+def test_launches_match_plain_at_odd_shapes(emulated, h, w, levels):
+    """Both entries at odd widths and heights, down to 1-pixel levels
+    (4x4 x 3 ends in 1x1, 9x1 x 4 in 2x1) and the deepest pyramid the
+    kernels take: every plane of every level equal to the plain version."""
+    gray, mask, depth, sigma = (torch.from_numpy(x) for x in _inputs(h + w + levels, h, w))
+    pairs = [(tfb.build_pyramid_planes(gray, mask, depth, sigma, levels),
+              tfb.build_pyramid_planes_plain(gray, mask, depth, sigma, levels)),
+             (tfb.cull_pyramid_one(depth, levels), tfb.cull_pyramid_one_plain(depth, levels)),
+             (tfb.regularize_cull_pyramid(depth, sigma, levels),
+              tfb.regularize_cull_pyramid_plain(depth, sigma, levels))]
+    assert _build.LAUNCHES["framebuild"] == 2 and _build.LAUNCHES["regularize_cull"] == 1
+    flat = lambda out: [x for lvl in out for x in (lvl.values() if isinstance(lvl, dict) else
+                                                  lvl if isinstance(lvl, tuple) else (lvl,))]
+    for got, want in pairs:
+        assert len(got) == len(want) == levels
+        for g, wnt in zip(flat(got), flat(want)):
+            assert g.shape == wnt.shape and g.dtype == wnt.dtype and torch.equal(g, wnt)
+
+
+def test_launch_refuses_deeper_pyramids(emulated):
+    gray, mask, depth, sigma = (torch.from_numpy(x) for x in _inputs(1, 8, 8))
+    with pytest.raises(ValueError, match="levels=7"):
+        tfb.build_pyramid_planes(gray, mask, depth, sigma, tfb.MAX_LEVELS + 1)
+    with pytest.raises(ValueError, match="levels=7"):
+        tfb.regularize_cull_pyramid(depth, sigma, tfb.MAX_LEVELS + 1)
 
 
 def _frame_and_maps(seed, h, w, levels):

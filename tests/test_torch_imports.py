@@ -79,7 +79,7 @@ def test_build_command_targets_sm90a_in_ignored_dir(monkeypatch):
     assert all("-fmad=false" in cmd and "-c" in cmd for cmd in cmds)
     assert "-shared" in link and link[-len(objs):] == [str(o) for o in objs]
     assert {Path(c).name for cmd in cmds for c in cmd if c.endswith(".cu")} == {
-        "gn.cu", "gn_level.cu", "epipolar.cu", "regularize.cu", "framebuild.cu"}
+        "gn.cu", "gn_level.cu", "epipolar.cu", "regularize.cu", "framebuild.cu", "floor.cu"}
     assert {p.name for p in _build._headers()} == {
         "dvo_kernels.h", "gn_pixel.cuh", "epipolar_pixel.cuh", "regularize_pixel.cuh",
         "framebuild_cull.cuh"}
@@ -108,7 +108,7 @@ def test_library_name_tracks_sources(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("entry,pointers,ints,floats", [
-    ("dvo_epipolar", 9, 4, 10), ("dvo_epipolar_fused", 15, 10, 11),
+    ("dvo_epipolar", 9, 4, 10), ("dvo_epipolar_fused", 17, 8, 11),
     ("dvo_regularize_cull", 3, 4, 2), ("dvo_regularize", 3, 2, 2), ("dvo_framebuild", 9, 5, 0),
 ])
 def test_entry_signatures(entry, pointers, ints, floats):

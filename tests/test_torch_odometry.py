@@ -203,8 +203,10 @@ def test_load_state_asks_for_the_card_by_default():
 def test_step_builds_the_reference_in_one_call(branch, sequence, monkeypatch):
     """Per ``monocular_step``: one pyramid build (the tracking frame) and one
     regularize-and-cull, in either mapping branch — no pair or one-plane cull
-    and no separate regulariser call; the promotion branch pushes the
-    propagated, un-regularised base into the ring."""
+    and no separate regulariser call.  Both branches are enqueued on every
+    frame (the decision is selected on the device), so ``propagate`` runs
+    once either way; a promotion pushes the propagated, un-regularised base
+    into the ring."""
     from dvo_tpu_torch.models import frame as tframe
     from dvo_tpu_torch.models import mapper as tmapper
 
@@ -234,8 +236,7 @@ def test_step_builds_the_reference_in_one_call(branch, sequence, monkeypatch):
                                    torch.tensor(K), cfg, reset_depth=torch.ones((H, W)))
     assert bool(res.is_keyframe) == (branch == "promotion")
     assert {k: v for k, v in calls.items() if not k.endswith("_out")} == {
-        "build_pyramid_planes": 1, "regularize_cull_pyramid": 1,
-        **({"propagate": 1} if branch == "promotion" else {})}
+        "build_pyramid_planes": 1, "regularize_cull_pyramid": 1, "propagate": 1}
     reg_d, reg_s = calls["regularize_cull_pyramid_out"][0][-1]
     assert new.ref.base.depth is reg_d and new.ref.base.sigma is reg_s
     if branch == "promotion":
@@ -356,8 +357,9 @@ def test_ba_checkpoint_from_dvo_tpu_continues(sequence, runs_ba, tmp_path):
 
 
 def test_ba_step_adds_no_host_read(sequence, monkeypatch):
-    """A promotion with BA reads one value back to the host, the keyframe
-    decision, as without BA: ``Tensor.__bool__``/``item`` run once."""
+    """A promotion with BA reads back to the host in one copy: the keyframe
+    decision with the ring's head and count (``tolist`` of one stacked
+    tensor, once), which BA's window slots need."""
     grays, masks, K = sequence
     cfg = dataclasses.replace(BA_TCFG, ba=dataclasses.replace(BA_TCFG.ba, window=1),
                               mapper=dataclasses.replace(BA_TCFG.mapper, max_forward=1))
@@ -372,5 +374,5 @@ def test_ba_step_adds_no_host_read(sequence, monkeypatch):
     _, res = todo.monocular_step(state, torch.tensor(grays[1]), torch.tensor(masks[1]),
                                  torch.tensor(K), cfg, reset_depth=torch.ones((H, W)))
     monkeypatch.undo()
-    assert reads == ["__bool__"], reads
+    assert reads == ["tolist"], reads
     assert bool(res.is_keyframe) and float(res.ba_cost) >= 0.0
