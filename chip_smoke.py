@@ -46,7 +46,12 @@ Phases, one line each (or a few):
                 launch and a copy of its bytes (``csrc/floor.cu``).
   4. main     — ``monocular_init`` + ``monocular_run`` with
                 ``DVOConfig.monocular()`` on 48 synthetic 640x480 uint8
-                frames (chunks of 24); every kernel of the path must have
+                frames (chunks of 24), through the graphed step driver
+                (``models/graphed``: one CUDA graph per run, captured by an
+                untimed chunk from the same first state, replayed per frame);
+                then the eager step loop twice and the graphed run again (A,
+                B, B, A), every run's poses bitwise equal to the first's;
+                every kernel of the path must have
                 launched: per frame ``gn_level`` three times, the frame build,
                 the regularize-and-cull launch and epipolar once (both mapping
                 branches are enqueued on every frame), ``regularize`` never.  Then the same
@@ -63,21 +68,38 @@ Phases, one line each (or a few):
                 must agree with the CUDA run.
   6. rgbd     — ``rgbd_init`` + ``rgbd_run_raw`` with ``DVOConfig.rgbd()``
                 on 64 synthetic 512x424 frames (uint8 gray, uint16 depth
-                counts with holes) in one chunk; every twist must recover the
+                counts with holes) in one chunk, graphed, against the eager
+                step loop as in phase 4; every twist must recover the
                 step; ``gn_level`` (four per frame) and the frame build must
                 have launched; the first 8 frames again on the CPU must
                 agree.  Then A, B, B, A and the profiles as in phase 4.
   7. monodepth — ``monocular_init_with_depth`` + ``monocular_run`` on 12
                 640x480 frames; the path's four kernels must have launched.
-  8. syncs    — host syncs per frame under ``set_sync_debug_mode``: none
-                on the RGB-D path and none over the 48-frame mono run (the
-                keyframe decision stays on the device).
+  8. syncs    — host syncs per frame under ``set_sync_debug_mode`` in a
+                run's second chunk, after its graph was captured in the
+                first: none on the RGB-D path and none over 24 mono frames
+                (the keyframe decision stays on the device); one capture per
+                run, counted apart with the syncs of the chunk that captured.
      graphs   — one ``monocular_step`` (no BA) and one ``rgbd_step`` captured
                 in a CUDA graph (capture raises on a host sync) and replayed
                 on six frames each, every replay equal bitwise to the eager
                 step on the same inputs; the launch counters count the
                 captured kernels per replay; ms per replay against the eager
                 step in turns, device ops and device-busy us of a replay.
+     streams  — ``monocular_init_batched`` + ``monocular_run_batched`` on
+                4 streams of 24 640x480 frames (own texture, motion and focal
+                length each, per-stream K, two chunks), and
+                ``rgbd_run_batched`` on 4 RGB-D streams: every stream bitwise
+                equal to its own single-stream run (concurrent replays on
+                separate CUDA streams must not race), launches 4 times the
+                single-stream path's, one capture per stream.  Then the
+                scaling turns B = 1, 2, 4, 8, 16, 16, 8, 4, 2, 1 (mono, 24
+                frames a stream): aggregate frames/s of a chunk that only
+                replays, device-busy ms of a 4-frame chunk, peak device
+                memory.
+     parallel — ``dvo_tpu_torch.parallel``: ``monocular_run_streams`` and
+                ``rgbd_run_streams`` on a one-rank NCCL group over a
+                ``stream`` mesh, bitwise equal to the batched drivers.
   9. cli      — ``python -m dvo_tpu_torch.run`` (its ``main``, in this
                 process) on PNG sequences written from the frames above with
                 a zlib writer, and calibration YAMLs: RGB-D (the 64 frames of
@@ -118,7 +140,10 @@ Phases, one line each (or a few):
                 exist: finite poses, the graph's node, edge and closure
                 counts, the closure re-tracks' launches counted exactly.
 ``python3 chip_smoke.py --back-end`` runs phases 1, 2, 10 and 11 only (a
-shorter call while working on the back end; it prints no result line).
+shorter call while working on the back end; it prints no result line);
+``--streams`` runs phases 1, 2 and streams only (for the scaling turns under
+another environment, e.g. ``CUDA_DEVICE_MAX_CONNECTIONS=32``; no result
+line).
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then a JSON line of per-kernel results and, last, the device JSON
 line.  Any failure raises (exit code != 0) before the last line is printed.
@@ -1236,6 +1261,235 @@ def graph_phase(card_line, name, step, inputs, frames, kernels, levels):
     return got
 
 
+STREAMS = 4             # streams of the batched runs held against single-stream runs
+STREAM_FRAMES = 24      # frames per stream after the first
+SCALING = (1, 2, 4, 8, 16, 16, 8, 4, 2, 1)   # streams per run of the scaling turns
+
+
+def render_streams(device):
+    """STREAMS mono sequences of STREAM_FRAMES + 1 frames at 640x480 (uint8),
+    each with its own texture, depth, motion and focal length: (grays,
+    masks) (B, N + 1, H, W) and K (B, 3, 3), on ``device``."""
+    rng = np.random.default_rng(SEED + 2)
+    grays, masks, Ks = [], [], []
+    for b in range(STREAMS):
+        base = texture(rng, H, W)
+        depth = (1.5 + 0.1 * smooth_field(rng, H, W)).astype(np.float32)
+        f = 600.0 * (1.0 + 0.05 * b)
+        K = torch.tensor([[f, 0, 320.0], [0, f, 240.0], [0, 0, 1]], device=device)
+        g, m = render(torch.from_numpy(base).to(device), torch.from_numpy(depth).to(device), K,
+                      tuple(x * (1.0 + 0.25 * b) for x in STEP_XI), STREAM_FRAMES)
+        grays.append(to_uint8(g))
+        masks.append(m)
+        Ks.append(K)
+    return torch.stack(grays), torch.stack(masks), torch.stack(Ks)
+
+
+def rgbd_streams(dev, r_grays, r_masks, r_counts, r_K, cfg_r):
+    """STREAMS RGB-D streams cut from the rendered sequence, stream b
+    starting at frame 2b: the stack of their first states and their
+    (B, STREAM_FRAMES, H, W) gray, mask, depth and sigma chunks on the card."""
+    from dvo_tpu_torch.models.odometry import raw_depth, rgbd_init, stack_states
+
+    starts = [2 * b for b in range(STREAMS)]
+    pick = lambda x, k: torch.stack([x[s + k] for s in starts]).to(dev)
+    d0, s0 = raw_depth(pick(r_counts, 0), DEPTH_SCALE)
+    g0, m0 = pick(r_grays, 0), pick(r_masks, 0)
+    states = stack_states([rgbd_init(g0[b], m0[b], d0[b], s0[b], r_K, cfg_r, device=dev)
+                           for b in range(STREAMS)])
+    frames = range(1, 1 + STREAM_FRAMES)
+    g = torch.stack([torch.stack([r_grays[s + k] for k in frames]) for s in starts]).to(dev)
+    m = torch.stack([torch.stack([r_masks[s + k] for k in frames]) for s in starts]).to(dev)
+    c = torch.stack([torch.stack([r_counts[s + k] for k in frames]) for s in starts]).to(dev)
+    d, sg = raw_depth(c, DEPTH_SCALE)
+    return states, (g, m, d, sg)
+
+
+def same_tree(a, b) -> bool:
+    """Every tensor of two states or results equal bitwise."""
+    ta, tb = tensors_of(a), tensors_of(b)
+    return len(ta) == len(tb) and all(x.shape == y.shape and x.dtype == y.dtype
+                                      and torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def streams_phase(dev, card_line, cfg, cfg_r, r_grays, r_masks, r_counts, r_K):
+    """B = STREAMS mono and RGB-D streams through the batched drivers (one
+    graphed driver per stream, each replayed on its own CUDA stream), each
+    stream held bitwise against its own single-stream run (the race check:
+    concurrent replays must not disturb one another), the launches against
+    B times the single-stream path's, one capture per stream per run.  Then
+    the mono scaling turns: aggregate frames/s of the second chunk (replays
+    only), device-busy ms of a 4-frame chunk and peak device memory, at
+    every B of SCALING."""
+    from dvo_tpu_torch.models.odometry import (
+        monocular_init,
+        monocular_init_batched,
+        monocular_run,
+        monocular_run_batched,
+        rgbd_run,
+        rgbd_run_batched,
+        select_streams,
+        stream_generators,
+        unstack_states,
+    )
+    from dvo_tpu_torch.ops.cuda import _build
+
+    grays, masks, Ks = render_streams(dev)
+    half = STREAM_FRAMES // 2
+    chunks = (slice(1, 1 + half), slice(1 + half, 1 + STREAM_FRAMES))
+
+    def mono_batched():
+        st, out = monocular_init_batched(grays[:, 0], masks[:, 0], Ks, cfg, device=dev), []
+        for sl in chunks:
+            st, res = monocular_run_batched(st, grays[:, sl], masks[:, sl], Ks, cfg)
+            out.append(res)
+        return st, out
+
+    (st_b, res_b), _, launches_b = run_path("streams_mono", mono_batched)
+    captures_b = _build.CAPTURES
+    singles, launches_1 = [], []
+    for b in range(STREAMS):
+        def mono_single(b=b):
+            st = monocular_init(grays[b, 0], masks[b, 0], Ks[b], cfg, device=dev,
+                                generator=stream_generators(dev, STREAMS)[b])
+            out = []
+            for sl in chunks:
+                st, res = monocular_run(st, grays[b, sl], masks[b, sl], Ks[b], cfg)
+                out.append(res)
+            return st, out
+
+        (st_1, res_1), _, launches = run_path(f"streams_mono_single_{b}", mono_single)
+        launches_1.append(launches)
+        equal = same_tree(st_1, select_streams(st_b, b)) and all(
+            same_tree(r1, select_streams(rb, b)) for r1, rb in zip(res_1, res_b))
+        if not equal:
+            raise AssertionError(f"streams: mono stream {b} differs from its single-stream run")
+        singles.append([r.T_world for r in res_1])
+    want = {k: sum(l[k] for l in launches_1) for k in launches_b}
+    if launches_b != want or launches_b != {k: STREAMS * v for k, v in launches_1[0].items()}:
+        raise AssertionError(f"streams: mono launches {launches_b}, expected {want} "
+                             f"(the single-stream runs' sum) = {STREAMS} x {launches_1[0]}")
+    if captures_b != STREAMS:
+        raise AssertionError(f"streams: {captures_b} captures for {STREAMS} streams in one run")
+    kf = torch.cat([r.is_keyframe for r in res_b], 1)
+    phase("streams", f"mono: {STREAMS} streams x {STREAM_FRAMES} frames 640x480 (own motion and "
+                     f"focal length each, two chunks), each bitwise equal to its single-stream "
+                     f"run; promotions per stream {kf.sum(1).tolist()}; launches {launches_b} = "
+                     f"{STREAMS} x the single-stream path's; {captures_b} captures")
+
+    # RGB-D: four streams, one chunk, each against its own rgbd_run
+    states_r, (g, m, d, sg) = rgbd_streams(dev, r_grays, r_masks, r_counts, r_K, cfg_r)
+    (st_r, res_r), _, launches_rb = run_path(
+        "streams_rgbd", lambda: rgbd_run_batched(states_r, g, m, d, sg, r_K, cfg_r))
+    launches_r1 = []
+    for b, st in enumerate(unstack_states(states_r)):
+        (st_1, res_1), _, launches = run_path(
+            f"streams_rgbd_single_{b}", lambda st=st, b=b: rgbd_run(st, g[b], m[b], d[b], sg[b],
+                                                                    r_K, cfg_r))
+        launches_r1.append(launches)
+        if not (same_tree(st_1, select_streams(st_r, b))
+                and same_tree(res_1, select_streams(res_r, b))):
+            raise AssertionError(f"streams: RGB-D stream {b} differs from its single-stream run")
+    if launches_rb != {k: STREAMS * v for k, v in launches_r1[0].items()}:
+        raise AssertionError(f"streams: RGB-D launches {launches_rb}, expected {STREAMS} x "
+                             f"{launches_r1[0]}")
+    phase("streams", f"rgbd: {STREAMS} streams x {STREAM_FRAMES} frames 512x424, each bitwise "
+                     f"equal to its single-stream run; launches {launches_rb}")
+
+    # Scaling turns (mono): stream b replays sequence b mod STREAMS.
+    turns = []
+    for b_count in SCALING:
+        idx = [b % STREAMS for b in range(b_count)]
+        g_s, m_s, K_s = grays[idx], masks[idx], Ks[idx]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        st = monocular_init_batched(g_s[:, 0], m_s[:, 0], K_s, cfg, device=dev)
+        st1, _ = monocular_run_batched(st, g_s[:, 1:], m_s[:, 1:], K_s, cfg)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        monocular_run_batched(st1, g_s[:, 1:], m_s[:, 1:], K_s, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        row = dict(streams=b_count, fps=b_count * STREAM_FRAMES / wall,
+                   ms_per_frame_round=1e3 * wall / STREAM_FRAMES, init_capture_chunk_s=capture_s,
+                   peak_bytes=peak, peak_bytes_per_stream=peak / b_count)
+        if b_count not in [t["streams"] for t in turns]:
+            ops, busy = device_profile(lambda: monocular_run_batched(
+                st1, g_s[:, 1:5], m_s[:, 1:5], K_s, cfg), 1, True)
+            row.update(busy_ms_per_frame_round=busy / 4e3, device_ops_per_frame_round=ops / 4)
+        turns.append(row)
+        phase("streams", f"B = {b_count}: {row['fps']:.1f} frames/s in all "
+                         f"({row['ms_per_frame_round']:.3f} ms a frame of every stream), init + "
+                         f"capture + first chunk {capture_s:.2f} s, peak memory "
+                         f"{peak / 2**20:.1f} MiB ({peak / b_count / 2**20:.1f} MiB a stream)"
+                         + (f", device busy {row['busy_ms_per_frame_round']:.3f} ms in "
+                            f"{row['device_ops_per_frame_round']:g} ops a frame round"
+                            if "busy_ms_per_frame_round" in row else "")
+                         + f" on {card_line}")
+    fps = {b: [t["fps"] for t in turns if t["streams"] == b] for b in sorted(set(SCALING))}
+    phase("streams", f"aggregate frames/s by B (two turns each): {fps}; B = 8 over B = 1: "
+                     f"{statistics.mean(fps[8]) / statistics.mean(fps[1]):.2f}x, B = 16 over B = "
+                     f"8: {statistics.mean(fps[16]) / statistics.mean(fps[8]):.2f}x")
+    return dict(mono=dict(streams=STREAMS, frames=STREAM_FRAMES, launches=launches_b,
+                          single_launches=launches_1[0], captures=captures_b,
+                          keyframes_per_stream=kf.sum(1).tolist()),
+                rgbd=dict(streams=STREAMS, frames=STREAM_FRAMES, launches=launches_rb,
+                          single_launches=launches_r1[0]),
+                scaling=turns, fps_by_streams=fps, inputs=(grays, masks, Ks))
+
+
+def parallel_phase(dev, card_line, cfg, cfg_r, inputs, rgbd_inputs):
+    """Both stream drivers (``dvo_tpu_torch.parallel``) on a one-rank NCCL
+    group over the ``stream`` mesh, each equal bitwise to the batched driver
+    on the same streams (results, states, generator states)."""
+    import torch.distributed as dist
+
+    from dvo_tpu_torch.models.odometry import (
+        monocular_init_batched,
+        monocular_run_batched,
+        rgbd_run_batched,
+    )
+    from dvo_tpu_torch.parallel import (
+        initialize,
+        monocular_run_streams,
+        rgbd_run_streams,
+        stream_mesh,
+    )
+
+    grays, masks, Ks = inputs
+    initialize()            # one process: nothing to join
+    mesh = stream_mesh()    # a one-rank group of its own
+    backend = dist.get_backend()
+    try:
+        init = lambda: monocular_init_batched(grays[:, 0], masks[:, 0], Ks, cfg, device=dev)
+        t0 = time.perf_counter()
+        st_s, res_s = monocular_run_streams(mesh, init(), grays[:, 1:], masks[:, 1:], Ks, cfg)
+        torch.cuda.synchronize()
+        ms_streams = 1e3 * (time.perf_counter() - t0)
+        st_b, res_b = monocular_run_batched(init(), grays[:, 1:], masks[:, 1:], Ks, cfg)
+        gens = lambda st: [g.get_state() for g in st.generator]
+        if not (same_tree(st_s, st_b) and same_tree(res_s, res_b)
+                and all(torch.equal(a, b) for a, b in zip(gens(st_s), gens(st_b)))):
+            raise AssertionError("parallel: monocular_run_streams differs from the batched driver")
+        states_r, frames_r = rgbd_streams(dev, *rgbd_inputs, cfg_r)
+        st_rs, res_rs = rgbd_run_streams(mesh, states_r, *frames_r, rgbd_inputs[3], cfg_r)
+        st_rb, res_rb = rgbd_run_batched(states_r, *frames_r, rgbd_inputs[3], cfg_r)
+        if not (same_tree(st_rs, st_rb) and same_tree(res_rs, res_rb)):
+            raise AssertionError("parallel: rgbd_run_streams differs from the batched driver")
+    finally:
+        dist.destroy_process_group()
+    phase("parallel", f"monocular_run_streams and rgbd_run_streams on a one-rank {backend} group "
+                      f"({STREAMS} streams x {STREAM_FRAMES} frames each) equal bitwise to the "
+                      f"batched drivers (results, states, generators); mono call with its "
+                      f"captures and gathers {ms_streams:.1f} ms on {card_line}")
+    return dict(backend=backend, ranks=1, streams=STREAMS, frames=STREAM_FRAMES,
+                equal_to_batched=True, mono_call_ms=ms_streams)
+
+
 def write_png(path, img) -> None:
     """``img`` as a PNG, written with the standard library's zlib (the card's
     machine may have no PIL): (H, W) uint8 or uint16 gray, or (H, W, 3)
@@ -1441,16 +1695,20 @@ def cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_p
         rgbd = sync_stacks(lambda: run("cli_rgbd", rgbd_dir, rgbd_yaml, CLI_CHUNK,
                                        "--mode", "rgbd"), stacks)
         where = lambda stack, fn: any("runner.py" in f and f", in {fn}\n" in f for f in stack)
-        in_dispatch = [s for s in stacks if where(s, "dispatch") or where(s, "upload")]
+        # (entering a graph capture synchronises once per run: counted apart)
+        in_capture = [s for s in stacks if any("capture_graph" in f for f in s)]
+        in_dispatch = [s for s in stacks if (where(s, "dispatch") or where(s, "upload"))
+                       and s not in in_capture]
         in_chunks = [s for s in stacks if where(s, "_run_chunks")]
         for stack in in_dispatch:
             print("sync inside a chunk's dispatch:\n" + "".join(stack[-6:]), file=sys.stderr)
         n_chunks = RGBD_FRAMES // CLI_CHUNK
-        summary["cli_rgbd"]["syncs"] = dict(in_dispatch=len(in_dispatch),
+        summary["cli_rgbd"]["syncs"] = dict(in_dispatch=len(in_dispatch), in_capture=len(in_capture),
                                             in_chunk_loop=len(in_chunks), total=len(stacks),
                                             chunks=n_chunks)
         phase("cli", f"cli_rgbd host syncs: {len(in_dispatch)} inside the dispatch of "
-                     f"{n_chunks} chunks, {len(in_chunks)} in the chunk loop outside it, "
+                     f"{n_chunks} chunks besides {len(in_capture)} in its one capture, "
+                     f"{len(in_chunks)} in the chunk loop outside it, "
                      f"{len(stacks)} in all (init, per-frame tail, result copies)")
         if in_dispatch:
             raise AssertionError("cli_rgbd: host sync inside a chunk's dispatch")
@@ -1609,11 +1867,12 @@ def fields_route():
         yield
 
 
-def paired_routes(name, fn, frames, first):
+def paired_routes(name, make_fn, frames, first):
     """After ``first`` (the path's run on the fused route: output, seconds,
     launches), the same path on the fields route twice and on the fused route
-    again: A, B, B, A in one process.  ``fn()`` returns a list of chunk
-    results.  Returns (ms/frame of the four runs by route, the fields
+    again: A, B, B, A in one process.  ``make_fn()``, called inside each
+    route's context, captures the path's graph and returns the run, which
+    returns a list of chunk results.  Returns (ms/frame of the four runs by route, the fields
     route's launches, (max |dT| of a fields run against the fused run over
     all frames, over the first CPU_FRAMES), whether the keyframe decisions
     were equal)."""
@@ -1624,12 +1883,12 @@ def paired_routes(name, fn, frames, first):
     dT, dT_first, same_kf = 0.0, 0.0, True
     for route in ("fields", "fields", "fused"):
         with fields_route() if route == "fields" else contextlib.nullcontext():
-            out, elapsed, launches = run_path(f"{name}_{route}", fn)
+            out, elapsed, launches = run_path(f"{name}_{route}", make_fn())
         ms[route].append(1e3 * elapsed / frames)
         kf = kf_of(out)
         require_launched(f"{name}_{route}", launches,
                          MONO_FIELDS_KERNELS if route == "fields" else MONO_KERNELS,
-                         mono=(route, frames, int(kf.sum()), 1))
+                         mono=(route, frames, int(kf.sum()), 0))   # primed: init untimed
         diff = (poses_of(out) - T_fused).abs()
         if route == "fields":
             fields_launches = launches
@@ -1644,11 +1903,12 @@ def paired_routes(name, fn, frames, first):
     return ms, fields_launches, (dT, dT_first), same_kf
 
 
-def paired_loops(name, fn, frames, poses_of, first, first_frames):
+def paired_loops(name, make_fn, frames, poses_of, first, first_frames):
     """After ``first`` (the path's run with the level kernel over
     ``first_frames`` frames: output, seconds, launches), the first ``frames``
-    frames of the same path (``fn()``) with the stepwise loop twice and with
-    the level kernel again: A, B, B, A in one process.  Returns (ms/frame of
+    frames of the same path (``make_fn()()``, the run made and captured
+    inside each loop's context) with the stepwise loop twice and with the
+    level kernel again: A, B, B, A in one process.  Returns (ms/frame of
     the four runs by loop, the stepwise launches, max |dT| of a stepwise run
     against the level kernel's over those frames and over the first
     CPU_FRAMES)."""
@@ -1657,7 +1917,7 @@ def paired_loops(name, fn, frames, poses_of, first, first_frames):
     dT, dT_first = 0.0, 0.0
     for loop in ("stepwise", "stepwise", "level"):
         with stepwise_tracker() if loop == "stepwise" else contextlib.nullcontext():
-            out, elapsed, launches = run_path(f"{name}_{loop}", fn)
+            out, elapsed, launches = run_path(f"{name}_{loop}", make_fn())
         ms[loop].append(1e3 * elapsed / frames)
         if loop == "stepwise":
             require_launched(f"{name}_stepwise", launches, ("gn",))
@@ -1675,22 +1935,40 @@ def paired_loops(name, fn, frames, poses_of, first, first_frames):
     return ms, step_launches, (dT, dT_first)
 
 
+def paired_drivers(name, graphed_fn, eager_fn, frames, poses_of, first):
+    """After ``first`` (the path's graphed run: output, seconds, launches),
+    the same path through the eager step loop twice and graphed again (the
+    same captured run, ``graphed_fn``): A, B, B, A in one process.  Every
+    run's poses must equal the first's bitwise.  Returns {"ms_per_frame":
+    {driver: [ms/frame of each run]}}."""
+    ms = {"graphed": [1e3 * first[1] / frames], "eager": []}
+    T0 = poses_of(first[0])
+    for which, fn in (("eager", eager_fn), ("eager", eager_fn), ("graphed", graphed_fn)):
+        out, elapsed, _ = run_path(f"{name}_{which}", fn)
+        ms[which].append(1e3 * elapsed / frames)
+        if not torch.equal(poses_of(out), T0):
+            raise AssertionError(f"{name}: the {which} run's poses differ from the first graphed "
+                                 f"run's (max {(poses_of(out) - T0).abs().max().item():.3g})")
+    return dict(ms_per_frame=ms)
+
+
 def device_ops(path_loops, loops=("level", "stepwise")):
     """{loop: (device ops per frame, idle share)} for a phase's line."""
     return {d: (round(path_loops[d]["device_ops_per_frame"]),
                 round(path_loops[d]["idle_share"], 3)) for d in loops}
 
 
-def profiled_loops(fn, frames, ms_per_frame, other=("stepwise", stepwise_tracker)):
-    """Device ops and device-busy us per frame of ``fn()`` (``frames``
-    frames) under ``torch.profiler``, as the code stands (the level kernel,
+def profiled_loops(make_fn, frames, ms_per_frame, other=("stepwise", stepwise_tracker)):
+    """Device ops and device-busy us per frame of ``make_fn()()`` (``frames``
+    frames; the run made inside the context, so that its graph is captured
+    there) under ``torch.profiler``, as the code stands (the level kernel,
     the fused route) and inside the context ``other`` = (name, context
     manager); the idle share is read against the mean unprofiled ms/frame of
     the same loop (``ms_per_frame``, from this process)."""
     out = {}
     for loop in ms_per_frame:
         with other[1]() if loop == other[0] else contextlib.nullcontext():
-            ops, us = device_profile(fn)
+            ops, us = device_profile(make_fn())
         wall_us = 1e3 * statistics.mean(ms_per_frame[loop])
         out[loop] = dict(device_ops_per_frame=ops / frames,
                            device_busy_us_per_frame=us / frames,
@@ -2010,6 +2288,7 @@ def main() -> None:
     from dvo_tpu_torch.config import DVOConfig
     from dvo_tpu_torch.models.odometry import (
         _cull_chunk,
+        _eager_run,
         monocular_init,
         monocular_init_with_depth,
         monocular_run,
@@ -2051,6 +2330,9 @@ def main() -> None:
         by_path = {}
         ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path)
         posegraph_phase(dev, card_line, grays, K, cfg, by_path)
+        return
+    if "--streams" in sys.argv[1:]:
+        streams_phase(dev, card_line, cfg, DVOConfig.rgbd(), *render_rgbd(dev))
         return
 
     # 3. kernels, on the state a warm-up run leaves (ring filled by promotions)
@@ -2105,9 +2387,10 @@ def main() -> None:
     old_census = gate_census(depth_update_args(warm, gray_next, mask_next, K0, cfg0)[0])
     planes = plane_rig_phase(dev, card_line, cfg, resets, kernels, fb, old_census)
 
-    # 4. main path
-    def mono_main(n=N_FRAMES):
-        state, outs = init(dev), []
+    # 4. main path: the graphed driver (one capture per run), then the eager
+    # step loop in turns
+    def mono_main(n=N_FRAMES, start=None):
+        state, outs = init(dev) if start is None else start, []
         for c in range(0, n, CHUNK):
             sl = slice(1 + c, 1 + c + CHUNK)
             state, res = monocular_run(state, grays[sl], masks[sl], K, cfg,
@@ -2115,7 +2398,32 @@ def main() -> None:
             outs.append(res)
         return outs
 
-    first = run_path("mono", mono_main)
+    def mono_primed(n=N_FRAMES):
+        """A run of ``n`` frames from a fresh first state whose driver an
+        untimed chunk from that state has already captured: the run replays
+        (the capture's one-time cost is timed apart, in ``capture_s``)."""
+        start = init(dev)
+        t0 = time.perf_counter()
+        monocular_run(start, grays[1:1 + CHUNK], masks[1:1 + CHUNK], K, cfg,
+                      resets[:CHUNK].to(dev))
+        torch.cuda.synchronize()
+        capture_s.append(time.perf_counter() - t0)
+        return lambda: mono_main(n, start)
+
+    def mono_eager(n=N_FRAMES):
+        """The same run through the eager step loop."""
+        state, outs = init(dev), []
+        for c in range(0, n, CHUNK):
+            sl = slice(1 + c, 1 + c + CHUNK)
+            cfg_c, K_c, (g, m) = _cull_chunk(cfg, K, grays[sl], masks[sl])
+            r = resets[c:c + CHUNK].to(dev)
+            state, res = _eager_run(state, g.shape[0], lambda st, i: monocular_step(
+                st, g[i], m[i], K_c, cfg_c, r[i]))
+            outs.append(res)
+        return outs
+
+    capture_s = []
+    first = run_path("mono", mono_primed())
     outs, elapsed, launches = first
     T = torch.cat([r.T_world for r in outs])
     kf = torch.cat([r.is_keyframe for r in outs])
@@ -2127,18 +2435,27 @@ def main() -> None:
     if not bool((accepted[~kf] > 0).any()):
         raise AssertionError("no depth update accepted an observation")
     require_launched("mono", launches, MONO_KERNELS, (cfg.pyramid.levels, N_FRAMES),
-                     mono=("fused", N_FRAMES, int(kf.sum()), 1))
+                     mono=("fused", N_FRAMES, int(kf.sum()), 0))   # primed: init untimed
     ms_frame = 1e3 * elapsed / N_FRAMES
     by_path = {"mono": launches}
     phase("main", f"{N_FRAMES} frames 640x480 -> 160x120, {int(kf.sum())} promotions, "
                   f"accepted per update {accepted[~kf].tolist()}, launches {launches}, "
-                  f"{ms_frame:.3f} ms/frame = {1e3 / ms_frame:.2f} fps on {card_line}")
+                  f"graphed {ms_frame:.3f} ms/frame = {1e3 / ms_frame:.2f} fps (capture and its "
+                  f"chunk {capture_s[0]:.3f} s) on {card_line}")
+    drivers = dict(mono=paired_drivers("mono", mono_primed(), mono_eager, N_FRAMES,
+                                       lambda o: torch.cat([r.T_world for r in o]), first))
+    drivers["mono"]["capture_and_chunk_s"] = capture_s[:]
+    phase("main", f"graphed driver vs eager step loop (A, B, B, A): ms/frame "
+                  f"{drivers['mono']['ms_per_frame']}, every run's poses bitwise equal to the "
+                  f"first graphed run's on {card_line}")
     # The mapper's fused route (as above) against its fields route, in turns.
     profile_sl = slice(nxt, nxt + PROFILE_FRAMES)
-    profile_run = lambda: monocular_run(warm, grays[profile_sl], masks[profile_sl], K, cfg,
-                                        resets[:PROFILE_FRAMES].to(dev))
+    # (each profiled run from its own copy of the warm state: its graph is
+    # captured under the route's or loop's context)
+    profile_run = lambda: (lambda start=dataclasses.replace(warm): monocular_run(
+        start, grays[profile_sl], masks[profile_sl], K, cfg, resets[:PROFILE_FRAMES].to(dev)))
     ms_routes, by_path["mono_fields"], dT_routes, same_kf = paired_routes(
-        "mono", mono_main, N_FRAMES, first)
+        "mono", mono_primed, N_FRAMES, first)
     routes = dict(ms_per_frame=ms_routes, fields_vs_fused_max_dT=dT_routes[0],
                   fields_vs_fused_first_frames_max_dT=dT_routes[1], keyframes_equal=same_kf,
                   **profiled_loops(profile_run, PROFILE_FRAMES, ms_routes,
@@ -2188,7 +2505,7 @@ def main() -> None:
                   f"{by_path['mono_fields']} on {card_line}")
     gn_loops = {}
     ms_pair, by_path["mono_stepwise"], dT_step = paired_loops(
-        "mono", lambda: mono_main(STEPWISE_FRAMES), STEPWISE_FRAMES,
+        "mono", lambda: mono_primed(STEPWISE_FRAMES), STEPWISE_FRAMES,
         lambda o: torch.cat([r.T_world for r in o]), first, N_FRAMES)
     gn_loops["mono"] = dict(ms_per_frame=ms_pair, stepwise_vs_level_max_dT=dT_step[0],
                            stepwise_vs_level_first_frames_max_dT=dT_step[1],
@@ -2219,11 +2536,29 @@ def main() -> None:
         d0, s0 = raw_depth(r_counts[0].to(device), DEPTH_SCALE)
         return rgbd_init(r_grays[0], r_masks[0], d0, s0, r_K, cfg_r, device=device)
 
-    def rgbd_main(device, n):
-        return rgbd_run_raw(rgbd_start(device), r_grays[1:1 + n], r_masks[1:1 + n],
-                            r_counts[1:1 + n], r_K, cfg_r, depth_scale=DEPTH_SCALE)[1]
+    def rgbd_main(device, n, start=None):
+        return rgbd_run_raw(rgbd_start(device) if start is None else start, r_grays[1:1 + n],
+                            r_masks[1:1 + n], r_counts[1:1 + n], r_K, cfg_r,
+                            depth_scale=DEPTH_SCALE)[1]
 
-    first = run_path("rgbd", lambda: rgbd_main(dev, RGBD_FRAMES))
+    def rgbd_primed(n=RGBD_FRAMES):
+        """As ``mono_primed``: the driver captured by an untimed short chunk."""
+        start = rgbd_start(dev)
+        t0 = time.perf_counter()
+        rgbd_main(dev, SYNC_FRAMES, start)
+        torch.cuda.synchronize()
+        capture_s.append(time.perf_counter() - t0)
+        return lambda: rgbd_main(dev, n, start)
+
+    def rgbd_eager(n=RGBD_FRAMES):
+        cfg_c, K_c, (g, m, c) = _cull_chunk(cfg_r, r_K.to(dev), *(
+            x[1:1 + n].to(dev) for x in (r_grays, r_masks, r_counts)))
+        d, s = raw_depth(c, DEPTH_SCALE)
+        return _eager_run(rgbd_start(dev), n, lambda st, i: rgbd_step(
+            st, g[i], m[i], d[i], s[i], K_c, cfg_c))[1]
+
+    capture_s = []
+    first = run_path("rgbd", rgbd_primed())
     res_r, elapsed, launches = first
     by_path["rgbd"] = launches
     if not bool(torch.isfinite(res_r.T_world).all()):
@@ -2243,6 +2578,13 @@ def main() -> None:
                   f"on {card_line}")
     if not step_err.max().item() <= STEP_TOL:
         raise AssertionError("rgbd: a frame-to-frame twist missed the step")
+    drivers["rgbd"] = paired_drivers("rgbd", rgbd_primed(), rgbd_eager, RGBD_FRAMES,
+                                     lambda o: o.T_world, first)
+    drivers["rgbd"]["capture_and_chunk_s"] = capture_s[:]
+    phase("rgbd", f"graphed driver vs eager step loop (A, B, B, A): ms/frame "
+                  f"{drivers['rgbd']['ms_per_frame']}, every run's poses bitwise equal to the "
+                  f"first graphed run's (capture and a {SYNC_FRAMES}-frame chunk "
+                  f"{capture_s[0]:.3f} s) on {card_line}")
     cpu_r = rgbd_main("cpu", CPU_FRAMES)
     dT_r = (res_r.T_world[:CPU_FRAMES].cpu() - cpu_r.T_world).abs().max().item()
     same_iters = bool((res_r.tracking.iterations[:CPU_FRAMES].cpu()
@@ -2252,10 +2594,11 @@ def main() -> None:
     if not dT_r <= POSE_TOL:
         raise AssertionError("rgbd: CUDA and CPU runs disagree")
     ms_pair, by_path["rgbd_stepwise"], dT_step = paired_loops(
-        "rgbd", lambda: rgbd_main(dev, STEPWISE_FRAMES), STEPWISE_FRAMES, lambda o: o.T_world,
+        "rgbd", lambda: rgbd_primed(STEPWISE_FRAMES), STEPWISE_FRAMES, lambda o: o.T_world,
         first, RGBD_FRAMES)
     gn_loops["rgbd"] = dict(ms_per_frame=ms_pair, stepwise_vs_level_max_dT=dT_step[0],
-                           **profiled_loops(lambda: rgbd_main(dev, PROFILE_FRAMES),
+                           **profiled_loops(lambda: (lambda start=rgbd_start(dev): rgbd_main(
+                                               dev, PROFILE_FRAMES, start)),
                                               PROFILE_FRAMES, ms_pair))
     phase("rgbd", f"level kernel vs stepwise loop (A, B, B, A): ms/frame {ms_pair}, "
                   f"stepwise poses within {dT_step[0]:.3g} of the level kernel's (tol "
@@ -2284,24 +2627,45 @@ def main() -> None:
                        f"{int(res_d.is_keyframe.sum())} promotions, launches {launches}, "
                        f"{1e3 * elapsed / MONO_DEPTH_FRAMES:.3f} ms/frame")
 
-    # 8. host syncs per frame, inputs already on the card
-    # (a copy from pageable host memory syncs, so nothing is shipped inside)
+    # 8. host syncs per frame after capture, inputs already on the card (a
+    # copy from pageable host memory syncs, so nothing is shipped inside).
+    # Each path runs two chunks: the first captures its graph (entering a
+    # capture synchronises once: counted apart), the second only replays.
     n = SYNC_FRAMES
-    d_grays, d_masks, d_counts = (x[1:1 + n].to(dev) for x in (r_grays, r_masks, r_counts))
+    d_grays, d_masks, d_counts = (x[1:1 + 2 * n].to(dev) for x in (r_grays, r_masks, r_counts))
     d_K = r_K.to(dev)
-    state_r = rgbd_start(dev)
-    syncs_rgbd = count_syncs(lambda: rgbd_run_raw(state_r, d_grays, d_masks, d_counts, d_K,
-                                                  cfg_r, depth_scale=DEPTH_SCALE))
-    # The whole 48-frame mono run (17 promotions): the keyframe decision stays
-    # on the device.  With BA, one per frame: the ba phase counts those.
-    mono_out, state_m, d_resets = [], init(dev), resets[:N_FRAMES].to(dev)
-    syncs_mono = count_syncs(lambda: mono_out.append(monocular_run(
-        state_m, grays[1:1 + N_FRAMES], masks[1:1 + N_FRAMES], K, cfg, d_resets)[1]))
-    kf_sync = int(mono_out[0].is_keyframe.sum())
-    phase("syncs", f"per frame: rgbd {syncs_rgbd / n:g} over {n} frames, mono {syncs_mono / N_FRAMES:g} "
-                   f"over {N_FRAMES} frames with {kf_sync} promotions")
+    _build.reset_launches()
+    chunk_r = lambda st, sl: rgbd_run_raw(st, d_grays[sl], d_masks[sl], d_counts[sl], d_K, cfg_r,
+                                          depth_scale=DEPTH_SCALE)
+    mid = []
+    syncs_capture = dict(rgbd=count_syncs(lambda: mid.append(
+        chunk_r(rgbd_start(dev), slice(0, n))[0])))
+    syncs_rgbd = count_syncs(lambda: chunk_r(mid[0], slice(n, 2 * n)))
+    captures = dict(rgbd=_build.CAPTURES)
+    # The 48-frame mono run (17 promotions) in two chunks: the keyframe
+    # decision stays on the device.  With BA, one per frame: the ba phase
+    # counts those.
+    _build.reset_launches()
+    d_grays_m, d_masks_m = grays[1:1 + N_FRAMES], masks[1:1 + N_FRAMES]
+    d_resets = resets[:N_FRAMES].to(dev)
+    chunk_m = lambda st, sl: monocular_run(st, d_grays_m[sl], d_masks_m[sl], K, cfg,
+                                           d_resets[sl])
+    mono_out = []
+    syncs_capture["mono"] = count_syncs(lambda: mono_out.append(
+        chunk_m(init(dev), slice(0, CHUNK))))
+    syncs_mono = count_syncs(lambda: mono_out.append(
+        chunk_m(mono_out[0][0], slice(CHUNK, N_FRAMES))))
+    captures["mono"] = _build.CAPTURES
+    kf_sync = int(sum(int(r[1].is_keyframe.sum()) for r in mono_out))
+    n_mono = N_FRAMES - CHUNK
+    phase("syncs", f"per frame after capture: rgbd {syncs_rgbd / n:g} over {n} frames, mono "
+                   f"{syncs_mono / n_mono:g} over {n_mono} frames ({kf_sync} promotions in both "
+                   f"chunks); captures per run {captures}; host syncs of the first chunk with "
+                   f"the init (its host-to-device copies) and the capture {syncs_capture}")
     if syncs_rgbd != 0 or syncs_mono != 0 or kf_sync == 0:
         raise AssertionError("host syncs: expected none on rgbd and none on mono")
+    if captures != dict(rgbd=1, mono=1):
+        raise AssertionError(f"expected one capture per run: {captures}")
 
     # 8b. one step of each path captured in a CUDA graph and replayed
     # (on the state after frame nxt, a promotion: the next frame is no
@@ -2333,6 +2697,13 @@ def main() -> None:
     graphs["mono"]["eager_ms_per_frame_main"] = ms_frame
     graphs["rgbd"]["eager_ms_per_frame_main"] = ms_rgbd
 
+    # 8c. B streams on one card; 8d. the stream drivers on a process group
+    streams = streams_phase(dev, card_line, cfg, cfg_r, r_grays, r_masks, r_counts, r_K)
+    by_path.update(streams_mono=streams["mono"]["launches"],
+                   streams_rgbd=streams["rgbd"]["launches"])
+    parallel = parallel_phase(dev, card_line, cfg, cfg_r, streams.pop("inputs"),
+                              (r_grays, r_masks, r_counts, r_K))
+
     # 9. the CLI, python -m dvo_tpu_torch.run, on PNG sequences
     cli = cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_path,
                     resets)
@@ -2362,7 +2733,8 @@ def main() -> None:
                          f"{fl['copy_us']:.2f} us, bound {k['bound_us']:.3f} us on {card_line}")
     frames_by_path = {"mono": N_FRAMES, "rgbd": RGBD_FRAMES, "mono_stepwise": STEPWISE_FRAMES,
                       "rgbd_stepwise": STEPWISE_FRAMES, "mono_fields": N_FRAMES,
-                      "mono_ba": N_FRAMES}
+                      "mono_ba": N_FRAMES, "streams_mono": STREAMS * STREAM_FRAMES,
+                      "streams_rgbd": STREAMS * STREAM_FRAMES}
     for k in kernels:
         if "times_by_shape" in k:
             times = k.pop("times_by_shape")
@@ -2388,7 +2760,9 @@ def main() -> None:
     print(json.dumps(plain_json({"kernels": kernels, "gn_loops": gn_loops, "mapper_routes": routes,
                       "epipolar_lanes": lanes_rows, "planes": planes, "graphs": graphs,
                       "ms_per_frame": ms_frame, "rgbd_ms_per_frame": ms_rgbd,
-                      "syncs_per_frame": {"mono": syncs_mono / N_FRAMES, "rgbd": syncs_rgbd / n},
+                      "syncs_per_frame": {"mono": syncs_mono / n_mono, "rgbd": syncs_rgbd / n},
+                      "syncs_in_capture_chunk": syncs_capture, "captures_per_run": captures,
+                      "drivers": drivers, "streams": streams, "parallel": parallel,
                       "cli": cli, "back_end": back_end, "card": card_line})))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -49,11 +49,12 @@ class Scene:
 
 
 def device_int(value, device) -> torch.Tensor:
-    """``value`` (a Python or NumPy int, or a tensor of one element) as a
-    0-d int32 tensor on ``device``; such a tensor passes through.  A Python
-    int becomes a fill on the device, not a host-to-device copy."""
+    """``value`` (a Python or NumPy int) as a 0-d int32 tensor on
+    ``device``; a tensor passes through as int32 on ``device`` with its
+    shape (a stack of B streams holds one id per stream).  A Python int
+    becomes a fill on the device, not a host-to-device copy."""
     if isinstance(value, torch.Tensor):
-        return value.to(device=device, dtype=torch.int32).reshape(())
+        return value.to(device=device, dtype=torch.int32)
     return torch.full((), int(value), dtype=torch.int32, device=device)
 
 

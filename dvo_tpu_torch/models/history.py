@@ -41,7 +41,7 @@ class KeyframeHistory:
 
     @property
     def capacity(self) -> int:
-        return self.gray.shape[0]
+        return self.gray.shape[-3]   # (C, H, W), or (B, C, H, W) for B streams
 
     @staticmethod
     def create(capacity: int, h: int, w: int, device=None) -> "KeyframeHistory":

@@ -19,6 +19,11 @@ the step reads the decision and the ring's ``head`` and ``count`` to the
 host in one copy and runs BA on a promotion whose window is full (one sync
 per frame): BA's window slots are host ints.
 
+A chunk (``monocular_run``, ``rgbd_run``, the batched entry points) runs
+through the graphed step driver (``models/graphed``): on the card one CUDA
+graph per run and stream, replayed once per frame; B streams replay on B
+CUDA streams at once.
+
 Randomness is explicit: the first keyframe's bootstrap noise and the
 per-frame depth-filter reset planes come from a ``torch.Generator`` (or are
 passed in, which is how the parity tests feed both packages the same
@@ -38,6 +43,7 @@ import torch
 
 from dvo_tpu_torch import lie
 from dvo_tpu_torch.config import DVOConfig
+from dvo_tpu_torch.models import graphed
 from dvo_tpu_torch.models.ba import bundle_adjust, window_from_history, window_slots
 from dvo_tpu_torch.models.frame import (
     Frame,
@@ -54,7 +60,6 @@ from dvo_tpu_torch.models.frame import (
 )
 from dvo_tpu_torch.models.history import (
     KeyframeHistory,
-    host_ints,
     push,
     refresh_head,
     write_back,
@@ -259,12 +264,101 @@ def _cull_chunk(cfg: DVOConfig, K, *stacks):
 
 
 def _stack(items):
-    """Stack a list of same-shaped dataclasses of tensors field by field."""
+    """Stack a list of same-shaped dataclasses of tensors field by field: a
+    leading axis on every tensor; generators become a tuple, one per item
+    (a stack of B states)."""
     first = items[0]
     if isinstance(first, torch.Tensor):
         return torch.stack(items)
+    if isinstance(first, torch.Generator):
+        return tuple(items)
+    if isinstance(first, tuple):
+        return tuple(_stack(list(z)) for z in zip(*items))
+    if first is None:
+        return None
     return type(first)(**{f.name: _stack([getattr(i, f.name) for i in items])
                           for f in dataclasses.fields(first)})
+
+
+def select_streams(tree, b):
+    """Stream ``b`` (an int) or the streams ``b`` (a slice) of a stack made
+    by ``_stack`` (states or results), as views into it."""
+    if isinstance(tree, torch.Tensor):
+        return tree[b]
+    if isinstance(tree, tuple):
+        if tree and isinstance(tree[0], torch.Generator):
+            return tree[b]
+        return tuple(select_streams(x, b) for x in tree)
+    if tree is None:
+        return None
+    return type(tree)(**{f.name: select_streams(getattr(tree, f.name), b)
+                         for f in dataclasses.fields(tree)})
+
+
+def stack_states(states):
+    """B states of one kind and layout as one state with a leading B axis
+    on every tensor (a ``VOState``'s ``generator`` becomes the tuple of the B
+    generators): the layout of ``dvo_tpu``'s batched states."""
+    return _stack(list(states))
+
+
+def unstack_states(states) -> list:
+    """The B per-stream states of a stack (views into it)."""
+    return [select_streams(states, b) for b in range(states.frame_count.shape[0])]
+
+
+def stream_generators(device, streams: int, seed: int = 0) -> list:
+    """One generator per stream, derived from one ``seed``: stream b's is
+    seeded with the first 64-bit word of
+    ``numpy.random.SeedSequence(seed, spawn_key=(b,)).generate_state(1,
+    numpy.uint64)``, NumPy's rule for independent child streams, so no two
+    streams draw the same planes and stream b's seed does not depend on how
+    many streams there are."""
+    return [_generator(device, int(np.random.SeedSequence(seed, spawn_key=(b,))
+                                   .generate_state(1, np.uint64)[0]))
+            for b in range(streams)]
+
+
+def _eager_run(state, n: int, step):
+    """The eager step loop (``step(state, i)`` -> (state', result)): the
+    monocular chunk with ``cfg.ba.enabled``, whose step reads one host copy
+    per frame and cannot be captured.  Returns (state', results with a
+    leading N axis)."""
+    results = []
+    for i in range(n):
+        state, res = step(state, i)
+        results.append(res)
+    return state, _stack(results)
+
+
+def _spec(sources) -> tuple:
+    """What a captured step depends on in its inputs: each input's shape,
+    dtype and whether it changes per frame."""
+    return tuple((tuple(t.shape[1:] if per_frame else t.shape), t.dtype, per_frame)
+                 for t, per_frame in sources)
+
+
+def _per_stream_K(K, b_count: int) -> list:
+    return [K[b] for b in range(b_count)] if K.dim() == 3 else [K] * b_count
+
+
+def _mono_chunk(owner, states, grays, masks, Ks, cfg: DVOConfig, reset_depths):
+    """The graphed monocular chunk of B streams (``graphed.run``): grays
+    (B, N, H, W), masks (B, N, H, W) or (B, H, W), reset planes (B, N, h, w)
+    or None (drawn from each state's generator), all culled.  Returns (the B
+    states', results with leading (B, N) axes, the drivers)."""
+    b_count, n = grays.shape[:2]
+    sources = [[(grays[b], True), (masks[b], masks.dim() == 4)]
+               + ([] if reset_depths is None else [(reset_depths[b], True)])
+               for b in range(b_count)]
+
+    def step(state, inputs, K):
+        return monocular_step(state, inputs[0], inputs[1], K, cfg,
+                              inputs[2] if len(inputs) > 2 else None)
+
+    key = ("mono", cfg, _spec(sources[0]), str(Ks[0].device))
+    generators = None if reset_depths is not None else [s.generator for s in states]
+    return graphed.run(owner, states, step, key, Ks, sources, n, generators)
 
 
 def monocular_run(state: VOState, grays, masks, K, cfg: DVOConfig = DVOConfig.monocular(),
@@ -273,19 +367,27 @@ def monocular_run(state: VOState, grays, masks, K, cfg: DVOConfig = DVOConfig.mo
     uint8 or float; masks: (N, H, W) or one (H, W) mask for all).
     ``reset_depths`` (N, h, w) at the base level are the per-frame reset
     planes; drawn from the state's generator when absent.  Returns
-    (state', StepResult with a leading N axis on every field)."""
+    (state', StepResult with a leading N axis on every field).
+
+    The chunk runs through the graphed step driver (``models/graphed``): on
+    the card one CUDA graph per run, replayed once per frame, with nothing
+    read back to the host; on the CPU the same protocol without capture.
+    With ``cfg.ba.enabled`` the step reads one host copy per frame (BA's
+    window slots) and cannot be captured: that chunk runs the eager step
+    loop (``_eager_run``), the only eager case on the card."""
     device = state.ref.xi.device
     grays, masks, K = (torch.as_tensor(x, device=device) for x in (grays, masks, K))
     if reset_depths is not None:
         reset_depths = torch.as_tensor(reset_depths, device=device)
     cfg, K, (grays, masks) = _cull_chunk(cfg, K, grays, masks)
-    results = []
-    for i in range(grays.shape[0]):
-        mask = masks if masks.dim() == 2 else masks[i]
-        reset = None if reset_depths is None else reset_depths[i]
-        state, res = monocular_step(state, grays[i], mask, K, cfg, reset)
-        results.append(res)
-    return state, _stack(results)
+    if cfg.ba.enabled:
+        return _eager_run(state, grays.shape[0], lambda st, i: monocular_step(
+            st, grays[i], masks if masks.dim() == 2 else masks[i], K, cfg,
+            None if reset_depths is None else reset_depths[i]))
+    states, res, drivers = _mono_chunk(state, [state], grays[None], masks[None], [K], cfg,
+                                       None if reset_depths is None else reset_depths[None])
+    graphed.register(states[0], drivers)
+    return states[0], select_streams(res, 0)
 
 
 # ----------------------------------------------------------------------- RGB-D
@@ -342,23 +444,37 @@ def rgbd_step(state: RGBDState, gray, mask, depth, sigma, K,
     return RGBDState(ref=frame, frame_count=state.frame_count + 1, vel=tr.xi), result
 
 
+def _rgbd_chunk(owner, states, grays, masks, depths, sigmas, Ks, cfg: DVOConfig):
+    """The graphed RGB-D chunk of B streams: grays, depths, sigmas (B, N,
+    H, W), masks (B, N, H, W) or (B, H, W), all culled.  Returns as
+    ``_mono_chunk``."""
+    b_count, n = grays.shape[:2]
+    sources = [[(grays[b], True), (masks[b], masks.dim() == 4), (depths[b], True),
+                (sigmas[b], True)] for b in range(b_count)]
+
+    def step(state, inputs, K):
+        return rgbd_step(state, *inputs, K, cfg)
+
+    key = ("rgbd", cfg, _spec(sources[0]), str(Ks[0].device))
+    return graphed.run(owner, states, step, key, Ks, sources, n)
+
+
 def rgbd_run(state: RGBDState, grays, masks, depths, sigmas, K,
              cfg: DVOConfig = DVOConfig.rgbd()):
     """Run ``rgbd_step`` over a chunk: grays, depths, sigmas (N, H, W);
     masks (N, H, W) or one (H, W) mask for all.  The 2**culls decimation is
-    done once for the chunk.  Returns (state', StepResult with a leading N
-    axis on every field)."""
+    done once for the chunk, and the chunk runs through the graphed step
+    driver as ``monocular_run``'s does.  Returns (state', StepResult with a
+    leading N axis on every field)."""
     device = state.ref.xi.device
     grays, masks, depths, sigmas, K = (torch.as_tensor(x, device=device)
                                        for x in (grays, masks, depths, sigmas, K))
     cfg, K, (grays, masks, depths, sigmas) = _cull_chunk(cfg, K, grays, masks, depths,
                                                          sigmas)
-    results = []
-    for i in range(grays.shape[0]):
-        mask = masks if masks.dim() == 2 else masks[i]
-        state, res = rgbd_step(state, grays[i], mask, depths[i], sigmas[i], K, cfg)
-        results.append(res)
-    return state, _stack(results)
+    states, res, drivers = _rgbd_chunk(state, [state], grays[None], masks[None], depths[None],
+                                       sigmas[None], [K], cfg)
+    graphed.register(states[0], drivers)
+    return states[0], select_streams(res, 0)
 
 
 def raw_depth(depths_raw: torch.Tensor, depth_scale: float = 5000.0,
@@ -391,6 +507,82 @@ def rgbd_run_raw(state: RGBDState, grays, masks, depths_raw, K,
     return rgbd_run(state, grays, masks, depths, sigmas, K, cfg)
 
 
+# ------------------------------------------------------------------- batched
+#
+# Multi-stream throughput mode (``dvo_tpu``'s ``monocular_init_batched`` and
+# ``monocular_run_batched``, odometry.py:444-467, which vmap the compiled
+# chunk over a leading stream axis).  Here each stream has its own graphed
+# step driver, replayed on its own CUDA stream, so the B replays of a frame
+# run concurrently on the card; the kernels launch once per stream and
+# frame.  Streams share nothing: separate rings, generators and static
+# state.  A shared (3, 3) K or per-stream (B, 3, 3) intrinsics.
+
+
+def monocular_init_batched(grays, masks, K, cfg: DVOConfig = DVOConfig.monocular(), *,
+                           device="cuda", generators=None, noise=None):
+    """Initialise B independent monocular streams: grays, masks (B, H, W);
+    K (3, 3) shared or (B, 3, 3).  Stream b draws its bootstrap noise (unless
+    ``noise`` (B, h, w) is given) and later its reset planes from
+    ``generators[b]``, by default ``stream_generators(device, B)`` (seed 0).
+    Returns the stack of the B states (``stack_states``) on ``device``: the
+    card unless ``"cpu"`` is asked for."""
+    grays, masks, K = (torch.as_tensor(x, device=device) for x in (grays, masks, K))
+    b_count = grays.shape[0]
+    if generators is None:
+        generators = stream_generators(grays.device, b_count)
+    return stack_states([
+        monocular_init(grays[b], masks[b], k, cfg, device=grays.device,
+                       generator=generators[b], noise=None if noise is None else noise[b])
+        for b, k in enumerate(_per_stream_K(K, b_count))])
+
+
+def monocular_run_batched(states: VOState, grays, masks, K,
+                          cfg: DVOConfig = DVOConfig.monocular(), reset_depths=None):
+    """B-stream chunked driver: ``monocular_run`` of every stream of the
+    stack ``states``.  grays (B, N, H, W); masks (B, N, H, W) or (B, H, W);
+    K (3, 3) or (B, 3, 3); ``reset_depths`` (B, N, h, w) or None (each
+    stream draws from its own generator).  On the card one graphed driver
+    per stream, each replayed on its own CUDA stream; on the CPU the
+    streams in turn; with ``cfg.ba.enabled`` each stream's eager loop in
+    turn.  Returns (the stack of states', StepResult with leading (B, N)
+    axes)."""
+    device = states.ref.xi.device
+    grays, masks, K = (torch.as_tensor(x, device=device) for x in (grays, masks, K))
+    if reset_depths is not None:
+        reset_depths = torch.as_tensor(reset_depths, device=device)
+    streams = unstack_states(states)
+    if cfg.ba.enabled:
+        runs = [monocular_run(st, grays[b], masks[b], k, cfg,
+                              None if reset_depths is None else reset_depths[b])
+                for b, (st, k) in enumerate(zip(streams, _per_stream_K(K, len(streams))))]
+        return stack_states([r[0] for r in runs]), _stack([r[1] for r in runs])
+    cfg, K, (grays, masks) = _cull_chunk(cfg, K, grays, masks)
+    new, res, drivers = _mono_chunk(states, streams, grays, masks,
+                                    _per_stream_K(K, len(streams)), cfg, reset_depths)
+    out = stack_states(new)
+    graphed.register(out, drivers)
+    return out, res
+
+
+def rgbd_run_batched(states: RGBDState, grays, masks, depths, sigmas, K,
+                     cfg: DVOConfig = DVOConfig.rgbd()):
+    """B-stream RGB-D chunk: ``rgbd_run`` of every stream of the stack
+    ``states`` (grays, depths, sigmas (B, N, H, W); masks (B, N, H, W) or
+    (B, H, W); K (3, 3) or (B, 3, 3)), as ``monocular_run_batched``.
+    Returns (the stack of states', StepResult with leading (B, N) axes)."""
+    device = states.ref.xi.device
+    grays, masks, depths, sigmas, K = (torch.as_tensor(x, device=device)
+                                       for x in (grays, masks, depths, sigmas, K))
+    cfg, K, (grays, masks, depths, sigmas) = _cull_chunk(cfg, K, grays, masks, depths,
+                                                         sigmas)
+    streams = unstack_states(states)
+    new, res, drivers = _rgbd_chunk(states, streams, grays, masks, depths, sigmas,
+                                    _per_stream_K(K, len(streams)), cfg)
+    out = stack_states(new)
+    graphed.register(out, drivers)
+    return out, res
+
+
 # ----------------------------------------------------------- state exchange
 
 _RING_PLANES = tuple(f.name for f in dataclasses.fields(KeyframeHistory)
@@ -399,6 +591,11 @@ _RING_PLANES = tuple(f.name for f in dataclasses.fields(KeyframeHistory)
 
 def _tensor(x, device, dtype=None):
     return None if x is None else torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _ints(x, device) -> torch.Tensor:
+    """An int leaf (0-d, or (B,) in a stack of states) as int32 on ``device``."""
+    return torch.tensor(np.asarray(x, np.int32), device=device)
 
 
 def _scene_from(obj, device) -> Scene:
@@ -412,26 +609,33 @@ def frame_from_reference(obj, device) -> Frame:
     return Frame(
         scenes=tuple(_scene_from(s, device) for s in obj.scenes),
         xi=_tensor(obj.xi, device), relative_xi=_tensor(obj.relative_xi, device),
-        age=_tensor(obj.age, device, torch.int32), frame_id=int(obj.frame_id),
+        age=_tensor(obj.age, device, torch.int32), frame_id=_ints(obj.frame_id, device),
     )
 
 
-def state_from_reference(obj, device, generator: Optional[torch.Generator] = None) -> VOState:
+def state_from_reference(obj, device, generator=None) -> VOState:
     """The port's ``VOState`` on ``device`` from a ``dvo_tpu`` VOState whose
     leaves are numpy arrays (``jax.tree.map(np.asarray, state)``) or from
     ``state_to_numpy``'s output.  Walks attributes only, so it never
     imports jax.  The PRNG key is not carried: the new state draws from
-    ``generator`` (default: a new one seeded 0 on ``device``)."""
+    ``generator`` (default: a new one seeded 0 on ``device``).  A batched
+    state (``monocular_init_batched``'s layout, a leading B axis on every
+    leaf) gives a stack of B states; ``generator`` is then a sequence of B
+    generators (default: ``stream_generators(device, B)``)."""
     device = torch.device(device)
     h = obj.history
     history = KeyframeHistory(
         **{name: _tensor(getattr(h, name), device) for name in _RING_PLANES},
-        head=int(h.head), count=int(h.count),
+        head=_ints(h.head, device), count=_ints(h.count, device),
     )
+    if np.ndim(obj.frame_count):
+        generator = (tuple(stream_generators(device, len(obj.frame_count)))
+                     if generator is None else tuple(generator))
+    elif generator is None:
+        generator = _generator(device, 0)
     return VOState(
-        history=history, ref=frame_from_reference(obj.ref, device),
-        generator=_generator(device, 0) if generator is None else generator,
-        frame_count=int(obj.frame_count),
+        history=history, ref=frame_from_reference(obj.ref, device), generator=generator,
+        frame_count=_ints(obj.frame_count, device),
         prev_rel=_tensor(obj.prev_rel, device), vel=_tensor(obj.vel, device),
     )
 
@@ -439,14 +643,20 @@ def state_from_reference(obj, device, generator: Optional[torch.Generator] = Non
 def rgbd_state_from_reference(obj, device) -> RGBDState:
     """The port's ``RGBDState`` on ``device`` from a ``dvo_tpu`` RGBDState
     with numpy leaves, or from ``rgbd_state_to_numpy``'s output (attributes
-    only; no jax import)."""
+    only; no jax import); batched states too."""
     device = torch.device(device)
     return RGBDState(ref=frame_from_reference(obj.ref, device),
-                     frame_count=int(obj.frame_count), vel=_tensor(obj.vel, device))
+                     frame_count=_ints(obj.frame_count, device), vel=_tensor(obj.vel, device))
 
 
 def _numpy(x):
     return None if x is None else x.detach().cpu().numpy()
+
+
+def _host_int(x):
+    """An int leaf to the host: an np.int32 scalar, or an int32 array in a
+    stack of states."""
+    return _numpy(x).astype(np.int32)[()]
 
 
 def _frame_to_numpy(frame: Frame) -> SimpleNamespace:
@@ -455,22 +665,22 @@ def _frame_to_numpy(frame: Frame) -> SimpleNamespace:
                                         for f in dataclasses.fields(s)})
                      for s in frame.scenes),
         xi=_numpy(frame.xi), relative_xi=_numpy(frame.relative_xi), age=_numpy(frame.age),
-        frame_id=np.int32(int(frame.frame_id)),
+        frame_id=_host_int(frame.frame_id),
     )
 
 
 def state_to_numpy(state: VOState) -> SimpleNamespace:
     """The reverse of ``state_from_reference``: the same attribute tree with
-    numpy leaves (the generator is not carried)."""
+    numpy leaves (the generator is not carried); a stack of states keeps
+    its leading B axis."""
     h = state.history
-    head, count = host_ints(h)
     return SimpleNamespace(
         history=SimpleNamespace(
             **{name: _numpy(getattr(h, name)) for name in _RING_PLANES},
-            head=np.int32(head), count=np.int32(count),
+            head=_host_int(h.head), count=_host_int(h.count),
         ),
         ref=_frame_to_numpy(state.ref),
-        frame_count=np.int32(int(state.frame_count)),
+        frame_count=_host_int(state.frame_count),
         prev_rel=_numpy(state.prev_rel), vel=_numpy(state.vel),
     )
 
@@ -478,4 +688,4 @@ def state_to_numpy(state: VOState) -> SimpleNamespace:
 def rgbd_state_to_numpy(state: RGBDState) -> SimpleNamespace:
     """The reverse of ``rgbd_state_from_reference``."""
     return SimpleNamespace(ref=_frame_to_numpy(state.ref),
-                           frame_count=np.int32(int(state.frame_count)), vel=_numpy(state.vel))
+                           frame_count=_host_int(state.frame_count), vel=_numpy(state.vel))

@@ -68,33 +68,60 @@ _SIGNATURES = {
 }
 
 
+# Graphs captured by ``capture_graph`` since the last ``reset_launches``.
+CAPTURES = 0
+
+
 def reset_launches() -> None:
+    global CAPTURES
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    CAPTURES = 0
 
 
-def capture_graph(fn, warmup: int = 2):
-    """``fn()`` captured into a CUDA graph (``torch.cuda.graph``) after
-    ``warmup`` eager calls on a side stream.  Returns (its outputs, which
-    every replay rewrites in place; ``replay()``; the launches one replay
-    makes, by counter).  The capture records the kernels ``fn`` launches
-    without running them, so their counts are taken back out of LAUNCHES and
-    added again by every replay: the counters stay launches that ran.  ``fn``
-    must read nothing back to the host: capture raises on a sync."""
+def capture_graph(fn, warmup: int = 2, stream=None, keep=(), generators=()):
+    """``fn()`` captured into a CUDA graph (``torch.cuda.graph``) on
+    ``stream`` (default: a new side stream), into a memory pool of its own,
+    after ``warmup`` eager calls on that stream.  Returns (its outputs,
+    which every replay rewrites in place; ``replay()``, which launches on
+    the current stream; the launches one replay makes, by counter).
+
+    The warm-up calls leave the tensors in ``keep`` and the ``generators``
+    as they found them: ``fn`` may write its results into ``keep`` and draw
+    from ``generators``.  The generators are registered with the graph, so
+    every replay draws what an eager call would draw next and advances them
+    as it would.  The counters count a path's frames: the warm-up calls'
+    launches are set-up and are taken back out of LAUNCHES, and so are the
+    capture's, which records kernels without running them; every replay
+    adds the captured launches.  ``fn`` must read nothing back to the host:
+    capture raises on a sync."""
     import torch
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
+    global CAPTURES
+    side = torch.cuda.Stream() if stream is None else stream
+    current = torch.cuda.current_stream()
+    saved = [t.clone() for t in keep]
+    drawn = [g.get_state() for g in generators]
+    before = dict(LAUNCHES)
+    side.wait_stream(current)
     with torch.cuda.stream(side):
         for _ in range(warmup):
             fn()
-    torch.cuda.current_stream().wait_stream(side)
-    before = dict(LAUNCHES)
+        if saved:
+            torch._foreach_copy_(list(keep), saved)
+    current.wait_stream(side)
+    for g, state in zip(generators, drawn):
+        g.set_state(state)
+    LAUNCHES.update(before)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    for g in generators:
+        graph.register_generator_state(g)
+    # thread_local: the runners' decode threads may touch CUDA meanwhile.
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
         out = fn()
     captured = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
     LAUNCHES.update(before)
+    CAPTURES += 1
 
     def replay():
         graph.replay()

@@ -56,7 +56,7 @@ import torch
 
 from dvo_tpu_torch import lie
 from dvo_tpu_torch.config import DVOConfig
-from dvo_tpu_torch.models import posegraph
+from dvo_tpu_torch.models import graphed, posegraph
 from dvo_tpu_torch.models.odometry import (
     monocular_init,
     monocular_init_with_depth,
@@ -590,7 +590,9 @@ def run_monocular(
 
                 def apply_pending():
                     nonlocal state
-                    state = harvest.apply_pending(state)
+                    corrected = harvest.apply_pending(state)
+                    graphed.carry(corrected, state)   # the next chunk replays, no new capture
+                    state = corrected
 
                 hooks = dict(pose_of=harvest.pose_of, on_chunk_done=harvest.on_chunk_done,
                              make_aux=lambda: harvest.pack_ring(state.history),

@@ -36,13 +36,16 @@ def test_port_imports_without_jax():
         "assert 'dvo_tpu_torch.native' in names and 'dvo_tpu_torch.utils.datasets' in names\n"
         "assert {'dvo_tpu_torch.models.ba', 'dvo_tpu_torch.models.posegraph',\n"
         "        'dvo_tpu_torch.utils.oracle', 'dvo_tpu_torch.utils.record'} <= set(names)\n"
+        "assert {'dvo_tpu_torch.models.graphed', 'dvo_tpu_torch.parallel',\n"
+        "        'dvo_tpu_torch.parallel.mesh', 'dvo_tpu_torch.parallel.distributed',\n"
+        "        'dvo_tpu_torch.parallel.streams'} <= set(names)\n"
         "assert not [m for m in sys.modules if m.startswith('dvo_tpu.')]\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 34
+    assert int(out.stdout.strip()) >= 39
 
 
 def _port_files():
