@@ -100,6 +100,29 @@ Phases, one line each (or a few):
      parallel — ``dvo_tpu_torch.parallel``: ``monocular_run_streams`` and
                 ``rgbd_run_streams`` on a one-rank NCCL group over a
                 ``stream`` mesh, bitwise equal to the batched drivers.
+     sharded  — the sharded solvers (``parallel.{tracking,mapping,ba}``).
+                First, on one card without collectives, ``gn.cu`` on 2 and
+                4 row blocks (nonzero row offsets) of the mono frame's
+                120x160 and 60x80 levels, each block against its plain
+                version and the blocks' sums against the whole-image launch
+                (rtol 1e-5, atol 1e-4, the count exact), and the fused
+                epipolar entry on 2 and 4 row blocks of the analytic rig,
+                each block equal bitwise to the whole launch's rows, its
+                counts adding up; the 30x160 GN block and a 30x160 epipolar
+                block timed.  Then ``__graft_entry__.dryrun_multichip``'s
+                step (``sharded_track`` at 120x160 x 3 levels,
+                ``sharded_depth_update`` against a 4-slot ring at a 0.2 m
+                offset, ``bundle_adjust_sharded`` over a window of 7 at
+                212x256, 2 iterations) on a one-rank NCCL group, each part
+                equal bitwise to the single-device port (the track to the
+                stepwise track: the same ``gn.cu`` launches), no host sync
+                in the tracking loop; and in 4 processes on this card in a
+                gloo group on a (kf 2, tile 2) mesh (this script started
+                with ``--sharded-rank``), every rank equal, held against the
+                single-device port (track rtol 1e-4 atol 2e-5, the maps
+                bitwise, BA twists 1e-3 and costs 5e-3): ms per part and the
+                launches of every rank.  With four cards, the same step on
+                NCCL through ``torchrun --nproc-per-node 4``.
   9. cli      — ``python -m dvo_tpu_torch.run`` (its ``main``, in this
                 process) on PNG sequences written from the frames above with
                 a zlib writer, and calibration YAMLs: RGB-D (the 64 frames of
@@ -143,7 +166,8 @@ Phases, one line each (or a few):
 shorter call while working on the back end; it prints no result line);
 ``--streams`` runs phases 1, 2 and streams only (for the scaling turns under
 another environment, e.g. ``CUDA_DEVICE_MAX_CONNECTIONS=32``; no result
-line).
+line); ``--sharded`` runs phases 1, 2 and the sharded step only (on a
+machine with four cards its NCCL run too; no result line).
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then a JSON line of per-kernel results and, last, the device JSON
 line.  Any failure raises (exit code != 0) before the last line is printed.
@@ -1012,7 +1036,8 @@ def plane_rig_phase(dev, card_line, cfg, resets, kernels, fb, old_census):
     observations per depth update; then, on the state PLANE_WARM frames in,
     the gate census, both epipolar entries, the regularize-and-cull launch and
     the frame builds held against their plain versions and timed.  Adds to
-    the ``kernels`` entries and to ``fb``; returns the rig's summary."""
+    the ``kernels`` entries and to ``fb``; returns the rig's summary and the
+    ``depth_update`` arguments it held the kernels on."""
     from dvo_tpu_torch.models.frame import normalize_gray
     from dvo_tpu_torch.models.odometry import (
         _cull_chunk,
@@ -1065,7 +1090,7 @@ def plane_rig_phase(dev, card_line, cfg, resets, kernels, fb, old_census):
             "bound_us", "observing_pixels", "marched_samples", "slots_in_use")}
     return dict(frames=n, promotions=int(kf.sum()), accepted_per_update=accepted,
                 accepted_sum=sum(accepted), census=census, earlier_rig_census=old_census,
-                ms_per_frame=secs * 1e3 / n)
+                ms_per_frame=secs * 1e3 / n), args
 
 
 def kinect_mono_kernel_phase(dev, grays, masks, counts, K, cfg):
@@ -1488,6 +1513,448 @@ def parallel_phase(dev, card_line, cfg, cfg_r, inputs, rgbd_inputs):
                       f"captures and gathers {ms_streams:.1f} ms on {card_line}")
     return dict(backend=backend, ranks=1, streams=STREAMS, frames=STREAM_FRAMES,
                 equal_to_batched=True, mono_call_ms=ms_streams)
+
+
+# The sharded solvers (dvo_tpu_torch.parallel.{tracking,mapping,ba}) on the
+# step of __graft_entry__.dryrun_multichip: tracking at 120x160 x 3 levels,
+# the depth update against a 4-slot ring with a 0.2 m offset, BA over a
+# window of 7 at 212x256 with 2 iterations; one (kf 2, tile 2) mesh.
+SHARD_H, SHARD_W, SHARD_LEVELS = 120, 160, 3
+SHARD_MOTION = (0.008, -0.003, 0.004, 0.001, -0.002, 0.001)  # object frame vs reference
+SHARD_MAP_OFFSET = (0.2, 0.0, 0.0, 0.0, 0.0, 0.0)
+SHARD_RING = 4
+SHARD_BA_H, SHARD_BA_W, SHARD_BA_WINDOW, SHARD_BA_ITERS = 212, 256, 7, 2
+SHARD_MESH = (2, 2)          # (kf, tile)
+SHARD_RANKS = 4
+SHARD_JOIN_S = 600           # each rank is joined with this timeout
+SHARD_TILES = (2, 4)         # row blocks of the kernels' checks
+SHARD_GN_RTOL, SHARD_GN_ATOL = 1e-5, 1e-4      # block sums vs the whole launch
+SHARD_XI_RTOL, SHARD_XI_ATOL = 1e-4, 2e-5      # sharded track vs the level kernel's
+SHARD_BA_XI_TOL, SHARD_BA_COST_RTOL = 1e-3, 5e-3
+
+
+def sharded_inputs(dev):
+    """The sharded step's inputs on ``dev``, made from SEED as
+    ``dryrun_multichip``'s: a textured 120x160 reference with a smooth depth
+    and, one motion step away, its inverse warp (3 levels each); a ring of 4
+    copies of the reference at poses 5 mm apart; a reset plane; a window of
+    7 copies of a 212x256 textured keyframe at poses 4 mm apart."""
+    from dvo_tpu_torch.config import BAConfig, MapperConfig, TrackerConfig
+    from dvo_tpu_torch.models.ba import window_from_history
+    from dvo_tpu_torch.models.frame import build_frame_with_depth, device_int
+    from dvo_tpu_torch.models.history import KeyframeHistory, push
+    from dvo_tpu_torch.ops.depth_filter import draw_reset_depth
+
+    rng = np.random.default_rng(SEED + 3)
+
+    def scene(h, w):
+        img = torch.tensor(texture(rng, h, w, terms=6, lo=0.1, hi=0.6), device=dev)
+        ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+        depth = torch.tensor(1.5 + 0.3 * np.sin(0.1 * xs) * np.cos(0.12 * ys), device=dev)
+        K = torch.tensor([[1.0 * w, 0, w / 2], [0, 1.0 * w, h / 2], [0, 0, 1]], device=dev)
+        return img, depth, torch.full_like(depth, 0.1), K
+
+    img, depth, sigma, K = scene(SHARD_H, SHARD_W)
+    grays, masks = render(img, depth, K, SHARD_MOTION, 1)
+    ref = build_frame_with_depth(grays[0], masks[0], depth, sigma, K, SHARD_LEVELS, 0, 0)
+    obj = build_frame_with_depth(grays[1], masks[1], depth, sigma, K, SHARD_LEVELS, 0, 1)
+    history = KeyframeHistory.create(SHARD_RING, SHARD_H, SHARD_W, device=dev)
+    for i in range(SHARD_RING):
+        xi = torch.tensor([0.005 * i, 0, 0, 0, 0, 0], dtype=torch.float32, device=dev)
+        history = push(history, dataclasses.replace(ref, xi=xi, frame_id=device_int(i, dev)))
+    cfg_m = MapperConfig()
+    reset = draw_reset_depth((SHARD_H, SHARD_W), cfg_m.depth_filter,
+                             torch.Generator(device=dev).manual_seed(SEED), dev)
+    b_img, b_depth, b_sigma, b_K = scene(SHARD_BA_H, SHARD_BA_W)
+    ones = torch.ones(b_img.shape, dtype=torch.bool, device=dev)
+    b_ref = build_frame_with_depth(b_img, ones, b_depth, b_sigma, b_K, 1, 0, 0)
+    ring = KeyframeHistory.create(8, SHARD_BA_H, SHARD_BA_W, device=dev)
+    for i in range(SHARD_BA_WINDOW):
+        xi = torch.tensor([0.004 * i, 0.001 * i, 0, 0, 0, 0], dtype=torch.float32, device=dev)
+        ring = push(ring, dataclasses.replace(b_ref, xi=xi, frame_id=device_int(i, dev)))
+    window = window_from_history(ring, b_K, SHARD_BA_WINDOW)
+    return dict(obj=obj, ref=ref, history=history, reset=reset, window=window,
+                cfg_t=TrackerConfig(), cfg_m=cfg_m,
+                cfg_ba=BAConfig(window=SHARD_BA_WINDOW, iterations=SHARD_BA_ITERS))
+
+
+def sharded_step(mesh, inp):
+    """``dryrun_multichip``'s step through the port's sharded functions on
+    ``mesh``: ``sharded_track``, ``sharded_depth_update`` at the tracked pose
+    plus SHARD_MAP_OFFSET (tracking alone converges to the small motion,
+    whose baseline observes little), ``bundle_adjust_sharded`` over ``kf``.
+    Each part runs with the launch counts set to 0 just before and read just
+    after.  Returns (outputs, ms by part, launches by part)."""
+    from dvo_tpu_torch import lie
+    from dvo_tpu_torch.parallel import bundle_adjust_sharded, sharded_depth_update, sharded_track
+
+    ms, launches = {}, {}
+
+    def part(name, fn):
+        out, secs, launches[name] = run_path(name, fn)
+        ms[name] = 1e3 * secs
+        return out
+
+    xi = part("tracking", lambda: sharded_track(inp["obj"], inp["ref"], inp["cfg_t"], mesh))
+    xi_map = lie.compose(xi, torch.tensor(SHARD_MAP_OFFSET, device=xi.device))
+    base = inp["ref"].base
+    age0 = torch.zeros(base.shape, dtype=torch.int32, device=xi.device)
+    d, s, a, st = part("mapping", lambda: sharded_depth_update(
+        inp["obj"].base, xi_map, xi_map, base.depth, base.sigma, age0, inp["history"],
+        inp["reset"], inp["cfg_m"], mesh))
+    ba = part("ba", lambda: bundle_adjust_sharded(inp["window"], inp["cfg_ba"], mesh, axis="kf"))
+    out = dict(xi=xi, xi_map=xi_map, depth=d, sigma=s, age=a,
+               stats=torch.stack([getattr(st, k) for k in STAT_NAMES]),
+               ba_xi=ba.xi, ba_depth=ba.depth, ba_costs=ba.costs, ba_counts=ba.counts)
+    return out, ms, launches
+
+
+def sharded_references(inp, out):
+    """The single-device port on the step's inputs: ``track`` (the level
+    kernel), ``depth_update`` at the pose the sharded step mapped at, and
+    ``bundle_adjust``.  Returns (the outputs, each part's ms: host clock
+    around the second of two calls, ending in a synchronise)."""
+    from dvo_tpu_torch.models.ba import bundle_adjust
+    from dvo_tpu_torch.models.mapper import depth_update
+    from dvo_tpu_torch.models.tracker import track
+
+    base = inp["ref"].base
+    age0 = torch.zeros(base.shape, dtype=torch.int32, device=base.depth.device)
+    xi_map = out["xi_map"].to(base.depth.device)
+    parts = dict(
+        tracking=lambda: track(inp["obj"], inp["ref"], inp["cfg_t"]).xi,
+        mapping=lambda: depth_update(inp["obj"].base, xi_map, xi_map, base.depth, base.sigma,
+                                     age0, inp["history"], inp["reset"], inp["cfg_m"]),
+        ba=lambda: bundle_adjust(inp["window"], inp["cfg_ba"]))
+    got, ms = {}, {}
+    for name, fn in parts.items():
+        fn()
+        got[name], secs, _ = run_path(name, fn)
+        ms[name] = 1e3 * secs
+    d, s, a, st = got["mapping"]
+    ba = got["ba"]
+    return dict(xi=got["tracking"], depth=d, sigma=s, age=a,
+                stats=torch.stack([getattr(st, k) for k in STAT_NAMES]),
+                ba_xi=ba.xi, ba_depth=ba.depth, ba_costs=ba.costs, ba_counts=ba.counts), ms
+
+
+def check_sharded_result(label, got, want):
+    """The sharded step's outputs against the single-device port's:
+    tracking within SHARD_XI_*, the maps and counts bitwise, BA's twists
+    within SHARD_BA_XI_TOL and its costs within SHARD_BA_COST_RTOL.
+    Returns the differences."""
+    got = {k: v.to(want["depth"].device) for k, v in got.items()}
+    dxi = (got["xi"] - want["xi"]).abs()
+    if not bool((dxi <= SHARD_XI_ATOL + SHARD_XI_RTOL * want["xi"].abs()).all()):
+        raise AssertionError(f"sharded {label}: track {got['xi'].tolist()} vs "
+                             f"{want['xi'].tolist()}")
+    for k in ("depth", "sigma", "age", "stats"):
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"sharded {label}: mapping {k} differs from depth_update's")
+    dba = (got["ba_xi"] - want["ba_xi"]).abs().max().item()
+    dcost = ((got["ba_costs"] - want["ba_costs"]).abs() / want["ba_costs"].abs()).max().item()
+    if not (dba <= SHARD_BA_XI_TOL and dcost <= SHARD_BA_COST_RTOL):
+        raise AssertionError(f"sharded {label}: BA xi {dba:.3g}, costs {dcost:.3g}")
+    if tuple(got["ba_depth"].shape) != (SHARD_BA_WINDOW, SHARD_BA_H, SHARD_BA_W) or \
+            not bool(torch.isfinite(got["ba_depth"]).all()):
+        raise AssertionError(f"sharded {label}: BA depth {tuple(got['ba_depth'].shape)}")
+    return dict(track_max_dxi=dxi.max().item(), ba_max_dxi=dba, ba_costs_max_rel=dcost,
+                mapping_bitwise=True, observed=got["stats"].tolist())
+
+
+def sharded_rank(folder: str, nccl: bool) -> None:
+    """One rank of the sharded step (``--sharded-rank FOLDER``, started by
+    ``spawn_sharded``): joins the group from the environment — NCCL on the
+    rank's card (``--nccl``), else gloo with every rank on card 0 — runs the
+    step twice (the first warms the group and the kernels) and saves the
+    second's outputs, ms and launches to FOLDER/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from dvo_tpu_torch.parallel import initialize, make_mesh
+
+    if not torch.cuda.is_available():
+        raise SystemExit("the sharded step needs a CUDA device")
+    device = "cuda" if nccl else "cpu"
+    initialize(device=device)
+    dev = torch.device("cuda", torch.cuda.current_device() if nccl else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        mesh = make_mesh(SHARD_MESH, ("kf", "tile"), device)
+        inp = sharded_inputs(dev)
+        sharded_step(mesh, inp)
+        out, ms, launches = sharded_step(mesh, inp)
+        torch.save(dict(out={k: v.cpu() for k, v in out.items()}, ms=ms, launches=launches,
+                        backend=dist.get_backend(), device=str(dev)),
+                   os.path.join(folder, f"rank{dist.get_rank()}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_sharded(nccl: bool) -> list:
+    """SHARD_RANKS processes of ``sharded_rank``: on NCCL one per card
+    through ``torchrun --nproc-per-node``, else on gloo, all on card 0 (NCCL
+    refuses two ranks on one card).  Each is joined with SHARD_JOIN_S; a
+    rank that fails or hangs fails the phase and every rank is stopped.
+    Returns each rank's saved dict, in rank order."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    folder = tempfile.mkdtemp(prefix="dvo_sharded_")
+    me = [os.path.abspath(__file__), "--sharded-rank", folder]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               OMP_NUM_THREADS="1")
+    if nccl:
+        cmds = [[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", str(SHARD_RANKS), *me, "--nccl"]]
+        envs = [env]
+    else:
+        cmds = [[sys.executable, *me]] * SHARD_RANKS
+        envs = [dict(env, RANK=str(r), LOCAL_RANK="0", WORLD_SIZE=str(SHARD_RANKS))
+                for r in range(SHARD_RANKS)]
+    procs = [subprocess.Popen(c, cwd=here, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c, e in zip(cmds, envs)]
+    errors = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=SHARD_JOIN_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"sharded: process {r} did not finish in {SHARD_JOIN_S} s")
+            if p.returncode != 0:
+                errors.append(f"process {r} exit {p.returncode}: {err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if errors:
+        raise AssertionError("sharded: " + "\n".join(errors))
+    ranks = [torch.load(os.path.join(folder, f"rank{r}.pt")) for r in range(SHARD_RANKS)]
+    for r, got in enumerate(ranks[1:], 1):
+        for k, v in got["out"].items():
+            if not torch.equal(v, ranks[0]["out"][k]):
+                raise AssertionError(f"sharded: rank {r}'s {k} differs from rank 0's")
+    return ranks
+
+
+def sharded_kernel_checks(card_line, warm, gray, mask, K, cfg, plane_args, kernels):
+    """``csrc/gn.cu`` and the fused ``csrc/epipolar.cu`` entry on row blocks,
+    on one card without collectives.  GN: T = 2 and 4 blocks of the mono
+    frame's two finer levels (the next frame against the warm state), each
+    block against its plain version (check_gn's tolerance) and the blocks'
+    sums against the whole-image launch (SHARD_GN_*, the count exact).
+    Epipolar: T = 2 and 4 blocks of the analytic rig's depth update, each
+    equal bitwise to the whole-image launch's rows and held against its
+    plain version, the blocks' counts adding up to the whole's.  Adds the
+    row-block timings to the ``gn`` and ``epipolar_fused`` entries."""
+    from dvo_tpu_torch import lie
+    from dvo_tpu_torch.models import mapper
+    from dvo_tpu_torch.models.frame import build_tracking_frame
+    from dvo_tpu_torch.models.tracker import level_planes, track
+    from dvo_tpu_torch.ops.cuda import _build, epipolar, gn
+
+    frame = build_tracking_frame(gray, mask, K, cfg.pyramid.levels, 0, warm.frame_count)
+    T_inv = lie.se3_exp(-track(frame, warm.ref, cfg.tracker).xi)
+    entries = {k["name"]: k for k in kernels}
+    gn_rows = {}
+    for level in (len(frame.scenes) - 1, len(frame.scenes) - 2):
+        ref = warm.ref.scenes[level]
+        planes = level_planes(frame.scenes[level], ref)
+        h, w = ref.shape
+        args = (ref.K, T_inv, level, cfg.tracker)
+        whole = gn.gn_terms(*planes, *args)
+        for tiles in SHARD_TILES:
+            bh = h // tiles
+            sums, worst = None, 0.0
+            for t in range(tiles):
+                rows = slice(t * bh, (t + 1) * bh)
+                block = [p[rows] for p in planes[:4]] + list(planes[4:])
+                kw = dict(y_offset=t * bh, full_shape=(h, w))
+                got = gn.gn_terms(*block, *args, **kw)
+                want = gn.gn_terms_plain(*block, *args, **kw)
+                for a, b in zip(got[:3], want[:3]):
+                    worst = max(worst, (a - b).abs().max().item()
+                                / max(b.abs().max().item(), 1e-12))
+                if worst > GN_REL_TOL or abs(int(got[3]) - int(want[3])) > max(
+                        2, GN_COUNT_TOL * bh * w):
+                    raise AssertionError(f"gn block {t} of {tiles} at {h}x{w}: relative error "
+                                         f"{worst:.3g}, count {int(got[3])} vs {int(want[3])}")
+                sums = got if sums is None else [x + y for x, y in zip(sums, got)]
+            if int(sums[3]) != int(whole[3]):
+                raise AssertionError(f"gn {tiles} blocks at {h}x{w}: count {int(sums[3])} vs "
+                                     f"the whole launch's {int(whole[3])}")
+            dsum = 0.0
+            for a, b in zip(sums[:3], whole[:3]):
+                if not torch.allclose(a, b, rtol=SHARD_GN_RTOL, atol=SHARD_GN_ATOL):
+                    raise AssertionError(f"gn {tiles} blocks at {h}x{w}: sums differ from the "
+                                         f"whole launch's by {(a - b).abs().max().item():.3g}")
+                dsum = max(dsum, (a - b).abs().max().item())
+            gn_rows[f"{h}x{w} T={tiles}"] = dict(block_vs_plain_max_rel=worst,
+                                                 sums_vs_whole_max_abs=dsum,
+                                                 count=int(whole[3]))
+            phase("sharded", f"gn {tiles} row blocks of {h}x{w} (offsets "
+                             f"{[t * bh for t in range(tiles)]}): each block within {worst:.3g} "
+                             f"of its plain version, the sums within {dsum:.3g} of the whole "
+                             f"launch's, count {int(sums[3])} equal")
+    # The finest level's second block of four: the row block a sharded track
+    # launches at tile 4, timed beside the whole-image launch.
+    fine = len(frame.scenes) - 1
+    ref = warm.ref.scenes[fine]
+    h, w = ref.shape
+    bh = h // 4
+    planes = level_planes(frame.scenes[fine], ref)
+    block = [p[bh:2 * bh] for p in planes[:4]] + list(planes[4:])
+    call = lambda fn: fn(*block, ref.K, T_inv, fine, cfg.tracker, y_offset=bh, full_shape=(h, w))
+    count = int(call(gn.gn_terms_plain)[3])
+    ops, us = device_profile(lambda: call(gn.gn_terms), 20, True)
+    nbytes, flops = gn.work((bh, w), count)
+    bound, by = _build.bound_us(nbytes, flops)
+    row = dict(shape=f"{bh}x{w}", y_offset=bh, device_us=us, device_launches=ops,
+               ms=timed(lambda: call(gn.gn_terms)), plain_ms=timed(lambda: call(gn.gn_terms_plain)),
+               bytes=nbytes, flops=flops, bound_us=bound, bound_by=by, checks=gn_rows)
+    entries["gn"]["row_block"] = row
+    phase("sharded", f"gn row block {bh}x{w} at row {bh}: device {us:.2f} us in {ops:g} "
+                     f"launches (the whole {h}x{w} launch: {entries['gn']['device_us']:.2f} us), "
+                     f"call {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                     f"{bound:.3f} us ({by}) on {card_line}")
+
+    # --- the fused epipolar entry on row blocks of the analytic rig ---
+    obj, obj_xi, rel_xi, depth, sigma, age, hist, reset, cfg_m = plane_args
+    ring = (hist.gray, hist.gx, hist.gy, hist.gmask)
+    h, w = depth.shape
+    whole = mapper.depth_update(*plane_args)
+    whole_stats = [int(getattr(whole[3], k)) for k in STAT_NAMES]
+    epi_rows, identical = {}, True
+    for tiles in SHARD_TILES:
+        bh = h // tiles
+        counts = np.zeros(4, int)
+        for t in range(tiles):
+            rows = slice(t * bh, (t + 1) * bh)
+            kw = dict(y_offset=t * bh, full_shape=(h, w))
+            sub = (obj, obj_xi, rel_xi, depth[rows], sigma[rows], age[rows], hist, reset[rows],
+                   cfg_m)
+            got = mapper.depth_update(*sub, **kw)
+            if not all(torch.equal(a, b[rows]) for a, b in zip(got[:3], whole[:3])):
+                raise AssertionError(f"epipolar block {t} of {tiles}: differs from the whole "
+                                     "launch's rows")
+            fields, aged_out = mapper.epipolar_fields(*sub, **kw)
+            want = epipolar.epipolar_update_plain(fields, *ring, cfg_m, full_shape=(h, w))
+            stats = [int(getattr(got[3], k)) for k in STAT_NAMES]
+            plain_stats = want[3].tolist() + [int(aged_out)]
+            compare_maps("epipolar block depth", got[0], want[0])
+            compare_maps("epipolar block sigma", got[1], want[1])
+            for k, (a, b) in enumerate(zip(stats, plain_stats)):
+                if abs(a - b) > max(2, STATS_TOL * b):
+                    raise AssertionError(f"epipolar block {STAT_NAMES[k]}: {a} vs {b}")
+            identical = identical and stats == plain_stats and all(
+                torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+            counts += stats
+        if counts.tolist() != whole_stats:
+            raise AssertionError(f"epipolar {tiles} blocks: counts {counts.tolist()} vs the "
+                                 f"whole launch's {whole_stats}")
+        epi_rows[f"{h}x{w} T={tiles}"] = dict(stats=counts.tolist())
+        phase("sharded", f"epipolar fused entry, {tiles} row blocks of the analytic rig's "
+                         f"{h}x{w}: every block equal bitwise to the whole launch's rows, counts "
+                         f"{counts.tolist()} add up to the whole's; bit-identical to the plain "
+                         f"version so far: {identical}")
+    bh = h // 4
+    table = mapper.pose_table(obj.K, obj_xi, rel_xi, hist)
+    fused = lambda: epipolar.epipolar_fused(
+        obj.gray, obj.mask, depth[bh:2 * bh], sigma[bh:2 * bh], age[bh:2 * bh],
+        reset[bh:2 * bh], table, *ring, hist.head, hist.count, cfg_m, y_offset=bh,
+        full_shape=(h, w))
+    ops, us = device_profile(fused, 20, True)
+    entries["epipolar_fused"]["row_block"] = dict(
+        shape=f"{bh}x{w}", y_offset=bh, device_us=us, device_launches=ops, ms=timed(fused),
+        bit_identical=identical, checks=epi_rows)
+    phase("sharded", f"epipolar fused entry row block {bh}x{w} at row {bh}: device {us:.2f} us "
+                     f"in {ops:g} ops on {card_line}")
+    return dict(gn=gn_rows, epipolar=epi_rows, epipolar_bit_identical=identical)
+
+
+def sharded_phase(dev, card_line):
+    """The sharded solvers' step (after ``sharded_kernel_checks``, the
+    kernels on row blocks): (2) on a one-rank NCCL group, each
+    part equal bitwise to the single-device port — tracking to the stepwise
+    track (the same ``gn.cu`` launches, one all-reduce each), mapping to
+    ``depth_update``, BA to ``bundle_adjust`` — with no host sync in the
+    tracking loop; (3) the step in SHARD_RANKS processes on this card in a
+    gloo group on the (kf 2, tile 2) mesh, held against the single-device
+    port; (4) with four cards, the same on NCCL through ``torchrun``.
+    Returns the phase's summary and the step's launches by path: (2)'s and
+    (3)'s rank 0's, each summed over the step's parts."""
+    import torch.distributed as dist
+
+    from dvo_tpu_torch.models.tracker import track
+    from dvo_tpu_torch.parallel import make_mesh, sharded_track
+
+    summary = {}
+    # (2) one rank, NCCL
+    inp = sharded_inputs(dev)
+    mesh = make_mesh((1, 1), ("kf", "tile"))   # a one-rank NCCL group of its own
+    try:
+        backend = dist.get_backend()
+        sharded_step(mesh, inp)
+        out, ms, launches = sharded_step(mesh, inp)
+        syncs = count_syncs(lambda: sharded_track(inp["obj"], inp["ref"], inp["cfg_t"], mesh))
+    finally:
+        dist.destroy_process_group()
+    if launches["tracking"]["gn"] == 0 or launches["mapping"]["epipolar"] == 0:
+        raise AssertionError(f"sharded (one rank): gn or epipolar never launched: {launches}")
+    want, single_ms = sharded_references(inp, out)
+    with stepwise_tracker():
+        stepwise = track(inp["obj"], inp["ref"], inp["cfg_t"]).xi
+    if not torch.equal(out["xi"], stepwise):
+        raise AssertionError("sharded (one rank): track differs from the stepwise track")
+    bitwise = {k: torch.equal(out[k], want[k]) for k in (
+        "depth", "sigma", "age", "stats", "ba_xi", "ba_depth", "ba_costs", "ba_counts")}
+    if not all(bitwise.values()) or syncs:
+        raise AssertionError(f"sharded (one rank): bitwise {bitwise}, {syncs} host syncs in "
+                             "the tracking loop")
+    summary["one_rank"] = dict(backend=backend, ms=ms, launches=launches, syncs_tracking=syncs,
+                               track_vs_level_kernel=(out["xi"] - want["xi"]).abs().max().item())
+    summary["single_device_ms"] = single_ms
+    phase("sharded", f"one-rank {backend} group: sharded_track equal bitwise to the stepwise "
+                     f"track ({launches['tracking']['gn']} gn launches, {syncs} host syncs; "
+                     f"{summary['one_rank']['track_vs_level_kernel']:.3g} from the level "
+                     f"kernel's), sharded_depth_update to depth_update and "
+                     f"bundle_adjust_sharded to bundle_adjust; ms {ms}, the single-device "
+                     f"port's (track on the level kernel) {single_ms} on {card_line}")
+
+    # (3) four processes on this card, gloo; (4) four cards, NCCL
+    runs = {"gloo": False} if torch.cuda.device_count() < SHARD_RANKS else {"gloo": False,
+                                                                           "nccl": True}
+    for name, nccl in runs.items():
+        ranks = spawn_sharded(nccl)
+        got = ranks[0]
+        diffs = check_sharded_result(name, got["out"], sharded_references(inp, got["out"])[0])
+        per_rank = [r["launches"] for r in ranks]
+        summary[name] = dict(ranks=SHARD_RANKS, mesh=SHARD_MESH, backend=got["backend"],
+                             devices=[r["device"] for r in ranks], ms=[r["ms"] for r in ranks],
+                             launches=per_rank, **diffs)
+        if any(r["tracking"]["gn"] == 0 or r["mapping"]["epipolar"] == 0 for r in per_rank):
+            raise AssertionError(f"sharded {name}: gn or epipolar never launched: {per_rank}")
+        phase("sharded", f"{SHARD_RANKS} ranks, {got['backend']} on "
+                         f"{sorted(set(r['device'] for r in ranks))}, mesh (kf, tile) "
+                         f"{SHARD_MESH}: every rank equal; track within "
+                         f"{diffs['track_max_dxi']:.3g} of the level kernel's, mapping bitwise "
+                         f"(observed {diffs['observed'][0]}), BA xi within "
+                         f"{diffs['ba_max_dxi']:.3g}, costs {diffs['ba_costs_max_rel']:.3g}; ms "
+                         f"per part {[r['ms'] for r in ranks]}; launches of rank 0 "
+                         f"{got['launches']} on {card_line}")
+    if "nccl" not in runs:
+        phase("sharded", f"four cards on NCCL: not measured ({torch.cuda.device_count()} card)")
+    step = lambda parts: {k: sum(p[k] for p in parts.values()) for k in parts["tracking"]}
+    return summary, {"sharded": step(launches),
+                     "sharded_gloo_rank0": step(summary["gloo"]["launches"][0])}
 
 
 def write_png(path, img) -> None:
@@ -2334,6 +2801,9 @@ def main() -> None:
     if "--streams" in sys.argv[1:]:
         streams_phase(dev, card_line, cfg, DVOConfig.rgbd(), *render_rgbd(dev))
         return
+    if "--sharded" in sys.argv[1:]:
+        sharded_phase(dev, card_line)
+        return
 
     # 3. kernels, on the state a warm-up run leaves (ring filled by promotions)
     warm, _ = monocular_run(init(dev), grays[1:1 + CHUNK], masks[1:1 + CHUNK], K, cfg,
@@ -2385,7 +2855,9 @@ def main() -> None:
     fb.update(kin_fb)
     # ... and on the analytic rig, after the gate census of the earlier one.
     old_census = gate_census(depth_update_args(warm, gray_next, mask_next, K0, cfg0)[0])
-    planes = plane_rig_phase(dev, card_line, cfg, resets, kernels, fb, old_census)
+    planes, plane_args = plane_rig_phase(dev, card_line, cfg, resets, kernels, fb, old_census)
+    sharded_rows = sharded_kernel_checks(card_line, warm, gray_next, mask_next, K0, cfg0,
+                                         plane_args, kernels)
 
     # 4. main path: the graphed driver (one capture per run), then the eager
     # step loop in turns
@@ -2703,6 +3175,13 @@ def main() -> None:
                    streams_rgbd=streams["rgbd"]["launches"])
     parallel = parallel_phase(dev, card_line, cfg, cfg_r, streams.pop("inputs"),
                               (r_grays, r_masks, r_counts, r_K))
+    # 8e. the sharded solvers' step (dvo_tpu_torch.parallel.{tracking,mapping,ba})
+    sharded, sharded_launches = sharded_phase(dev, card_line)
+    sharded["kernels"] = sharded_rows
+    by_path.update(sharded_launches)
+    entries["gn"]["launches_per_sharded_track"] = {
+        "one_rank": sharded["one_rank"]["launches"]["tracking"]["gn"],
+        "gloo_rank0": sharded["gloo"]["launches"][0]["tracking"]["gn"]}
 
     # 9. the CLI, python -m dvo_tpu_torch.run, on PNG sequences
     cli = cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_path,
@@ -2734,7 +3213,8 @@ def main() -> None:
     frames_by_path = {"mono": N_FRAMES, "rgbd": RGBD_FRAMES, "mono_stepwise": STEPWISE_FRAMES,
                       "rgbd_stepwise": STEPWISE_FRAMES, "mono_fields": N_FRAMES,
                       "mono_ba": N_FRAMES, "streams_mono": STREAMS * STREAM_FRAMES,
-                      "streams_rgbd": STREAMS * STREAM_FRAMES}
+                      "streams_rgbd": STREAMS * STREAM_FRAMES,
+                      "sharded": 1, "sharded_gloo_rank0": 1}     # per step
     for k in kernels:
         if "times_by_shape" in k:
             times = k.pop("times_by_shape")
@@ -2763,6 +3243,7 @@ def main() -> None:
                       "syncs_per_frame": {"mono": syncs_mono / n_mono, "rgbd": syncs_rgbd / n},
                       "syncs_in_capture_chunk": syncs_capture, "captures_per_run": captures,
                       "drivers": drivers, "streams": streams, "parallel": parallel,
+                      "sharded": sharded,
                       "cli": cli, "back_end": back_end, "card": card_line})))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2770,4 +3251,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--sharded-rank" in sys.argv[1:]:
+        sharded_rank(sys.argv[sys.argv.index("--sharded-rank") + 1], "--nccl" in sys.argv[1:])
+    else:
+        main()

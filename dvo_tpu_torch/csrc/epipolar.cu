@@ -113,7 +113,7 @@ epipolar_kernel(const float* __restrict__ fields, Raw raw, Ring ring, Outputs ou
   extern __shared__ __align__(16) float rows[];
   float* row = rows + (threadIdx.x / kLanes) * row_floats(s.steps);
 
-  const int n = s.h * s.w;
+  const int n = s.bh * s.w;  // the block's pixels
   const int tid = threadIdx.x;
   const int p = blockIdx.x * kPixels + tid;
   const bool owns = tid < kPixels && p < n;
@@ -128,7 +128,7 @@ epipolar_kernel(const float* __restrict__ fields, Raw raw, Ring ring, Outputs ou
   if (tid < 4) counts[tid] = 0;
   if (owns) {
     if constexpr (kFused) {
-      px = prepare(raw, p, s.h, s.w, s.capacity, &aged_out);
+      px = prepare(raw, p, s.h, s.w, s.y_offset, s.capacity, &aged_out);
     } else {
       px = load_fields(fields, p, n, s.capacity);
     }
@@ -160,7 +160,7 @@ epipolar_kernel(const float* __restrict__ fields, Raw raw, Ring ring, Outputs ou
                               << (warp_lane & ~(kLanes - 1));
   for (int j = tid / kLanes; j < n_listed; j += kGroups) {
     const Pixel& q = listed[j];
-    const Match m = march(ring.gray + (size_t)q.slot * n, q, s, lane, group_mask, row);
+    const Match m = march(ring.gray + (size_t)q.slot * s.h * s.w, q, s, lane, group_mask, row);
     if (lane == 0) matched[owner[j]] = m;
   }
   __syncthreads();
@@ -196,7 +196,7 @@ int launch(const float* fields, const Raw& raw, const Ring& ring, const Outputs&
   if (s.steps < 1 || dynamic > 200 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(out.stats, 0, 4 * sizeof(int32_t), stream);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (s.h * s.w + kPixels - 1) / kPixels;
+  const int blocks = (s.bh * s.w + kPixels - 1) / kPixels;
   if (dynamic > 48 * 1024) {  // a march of more than ~380 steps at 32 groups
     err = cudaFuncSetAttribute(epipolar_kernel<kFused>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic);
@@ -222,16 +222,20 @@ extern "C" int dvo_epipolar_lanes() { return kLanes; }
 extern "C" int dvo_epipolar_threads() { return kThreads; }
 extern "C" int dvo_epipolar_pixels() { return kPixels; }
 
-// stats: 4 int32 (observed, accepted, rejected, 0), zeroed here.
+// stats: 4 int32 (observed, accepted, rejected, 0), zeroed here.  The field
+// planes and the outputs are block_h x w (rows of the h x w ring images).
 extern "C" int dvo_epipolar(const float* fields, const float* born_gray, const float* born_gx,
                             const float* born_gy, const uint8_t* born_gmask, float* depth_out,
                             float* sigma_out, int32_t* age_out, int32_t* stats, int h, int w,
-                            int capacity, int steps, float match_thresh, float big_ssd,
-                            float epi_sigma2, float lum_2sigma2, float accept_d_lo,
-                            float accept_d_hi, float accept_s_lo, float accept_s_hi,
-                            float gain_ramp, float reset_sigma, void* stream) {
-  const Scalars s{h, w, capacity, steps, match_thresh, big_ssd, epi_sigma2, lum_2sigma2,
-                  accept_d_lo, accept_d_hi, accept_s_lo, accept_s_hi, gain_ramp, reset_sigma};
+                            int block_h, int capacity, int steps, float match_thresh,
+                            float big_ssd, float epi_sigma2, float lum_2sigma2,
+                            float accept_d_lo, float accept_d_hi, float accept_s_lo,
+                            float accept_s_hi, float gain_ramp, float reset_sigma,
+                            void* stream) {
+  if (block_h < 0 || block_h > h) return (int)cudaErrorInvalidValue;
+  const Scalars s{h, w, block_h, 0, capacity, steps, match_thresh, big_ssd, epi_sigma2,
+                  lum_2sigma2, accept_d_lo, accept_d_hi, accept_s_lo, accept_s_hi, gain_ramp,
+                  reset_sigma};
   return launch<false>(fields, Raw{}, Ring{born_gray, born_gx, born_gy, born_gmask},
                        Outputs{depth_out, sigma_out, age_out, stats}, s, (cudaStream_t)stream);
 }
@@ -239,19 +243,23 @@ extern "C" int dvo_epipolar(const float* fields, const float* born_gray, const f
 // stats: 4 int32 (observed, accepted, rejected, aged_out), zeroed here.
 // head, count: the ring's newest slot and live keyframes, one int32 each in
 // device memory (every thread of the crop reads them: one broadcast load).
+// The reference maps, the reset plane and the outputs are block_h x w, rows
+// y_offset .. y_offset + block_h - 1 of the h x w object frame and ring.
 extern "C" int dvo_epipolar_fused(
     const float* obj_gray, const uint8_t* obj_mask, const float* ref_depth,
     const float* ref_sigma, const int32_t* ref_age, const float* reset_depth,
     const float* table, const float* born_gray, const float* born_gx, const float* born_gy,
     const uint8_t* born_gmask, float* depth_out, float* sigma_out, int32_t* age_out,
-    int32_t* stats, const int32_t* head, const int32_t* count, int h, int w, int capacity,
-    int steps, int crop_x0,
-    int crop_x1, int crop_y0, int crop_y1, float min_search_depth, float match_thresh,
-    float big_ssd, float epi_sigma2, float lum_2sigma2, float accept_d_lo, float accept_d_hi,
-    float accept_s_lo, float accept_s_hi, float gain_ramp, float reset_sigma, void* stream) {
-  if (capacity < 1) return (int)cudaErrorInvalidValue;
-  const Scalars s{h, w, capacity, steps, match_thresh, big_ssd, epi_sigma2, lum_2sigma2,
-                  accept_d_lo, accept_d_hi, accept_s_lo, accept_s_hi, gain_ramp, reset_sigma};
+    int32_t* stats, const int32_t* head, const int32_t* count, int h, int w, int block_h,
+    int y_offset, int capacity, int steps, int crop_x0, int crop_x1, int crop_y0, int crop_y1,
+    float min_search_depth, float match_thresh, float big_ssd, float epi_sigma2,
+    float lum_2sigma2, float accept_d_lo, float accept_d_hi, float accept_s_lo,
+    float accept_s_hi, float gain_ramp, float reset_sigma, void* stream) {
+  if (capacity < 1 || block_h < 0 || y_offset < 0 || y_offset + block_h > h)
+    return (int)cudaErrorInvalidValue;
+  const Scalars s{h, w, block_h, y_offset, capacity, steps, match_thresh, big_ssd,
+                  epi_sigma2, lum_2sigma2, accept_d_lo, accept_d_hi, accept_s_lo, accept_s_hi,
+                  gain_ramp, reset_sigma};
   const Raw raw{obj_gray, obj_mask, ref_depth, ref_sigma, ref_age, reset_depth, table,
                 head, count, crop_x0, crop_x1, crop_y0, crop_y1, min_search_depth};
   return launch<true>(nullptr, raw, Ring{born_gray, born_gx, born_gy, born_gmask},

@@ -13,6 +13,14 @@
 //   * finish      — match gates, gradient sample, triangulation, sigma model,
 //                   acceptance gates and the Gaussian fusion with reset.
 //
+// A launch may cover a row block of the reference keyframe (the tile-sharded
+// mapper, dvo_tpu_torch/parallel/mapping.py): pixel p of the block lies on
+// image row p / w + y_offset.  The block's planes (reference depth, sigma,
+// age, reset depth, the 24 field planes, the outputs) are indexed by p; the
+// object frame and the ring are full h x w images, and every bound, clamp,
+// gather and the crop gate use the full image and the global row.  A whole
+// image is the block with bh = h and y_offset 0.
+//
 // Everything is built with -fmad=false, IEEE division and sqrtf, so every
 // expression rounds as the op-by-op PyTorch plain version does: keep the
 // operation order of ops/cuda/epipolar.epipolar_update_plain and
@@ -57,7 +65,9 @@ enum Field {
 };
 
 struct Scalars {
-  int h, w, capacity, steps;  // steps = S: windows 0..S-1 over offsets 0..S+1
+  int h, w;             // the full image: the object frame and the ring
+  int bh, y_offset;     // the block: bh rows from image row y_offset
+  int capacity, steps;  // steps = S: windows 0..S-1 over offsets 0..S+1
   float match_thresh, big_ssd, epi_sigma2, lum_2sigma2;
   float accept_d_lo, accept_d_hi, accept_s_lo, accept_s_hi;
   float gain_ramp, reset_sigma;
@@ -148,12 +158,14 @@ __device__ __forceinline__ Projected warp_point(const float* K, const float* T, 
 }
 
 // Steps 1-4a and the triangulation coefficients of
-// dvo_tpu.models.mapper.depth_update for reference pixel p = y * w + x;
+// dvo_tpu.models.mapper.depth_update for pixel p = (y - y_offset) * w + x of
+// the block, on image row y of the h x w image;
 // *aged_out: the pixel lies in the crop and its born keyframe left the ring.
-__device__ __forceinline__ Pixel prepare(const Raw& in, int p, int h, int w, int capacity,
-                                         bool* aged_out) {
-  const int y = p / w;
-  const int x = p - y * w;
+__device__ __forceinline__ Pixel prepare(const Raw& in, int p, int h, int w, int y_offset,
+                                         int capacity, bool* aged_out) {
+  const int yb = p / w;
+  const int x = p - yb * w;
+  const int y = yb + y_offset;
   float K[9], T[13];
 #pragma unroll
   for (int i = 0; i < 9; ++i) K[i] = __ldg(in.table + i);

@@ -2,7 +2,11 @@
 // launch per linearisation.  The tracker's path runs gn_level.cu, which
 // takes a level's whole GN loop into one launch; this kernel stays as the
 // single-step entry point (tracker.gn_terms) and as the stepwise yardstick.
-// The per-pixel arithmetic both share is gn_pixel.cuh.
+// The per-pixel arithmetic both share is gn_pixel.cuh.  The tile-sharded
+// tracker (parallel/tracking.py) launches it once per GN step on its rank's
+// row block: h x w pixels starting at image row y_offset of a full_h x
+// full_w image whose gather planes it reads whole; the block's 44 sums are
+// then all-reduced over the ranks.
 //
 // Replaces the Pallas kernel dvo_tpu/ops/pallas/gn.py:_gn_kernel (reached
 // through gn_terms_pallas).  Its arithmetic follows the XLA twin
@@ -85,13 +89,15 @@ extern "C" int dvo_gn_terms(const float* obj_gray, const uint8_t* obj_mask,
                             const float* ref_gray, const uint8_t* ref_mask,
                             const float* ref_gx, const float* ref_gy,
                             const uint8_t* ref_gmask, const float* params, float* partials,
-                            int h, int w, float step, float min_depth, float sigma_lo,
-                            float sigma_hi, int weight_b_only, int crop, int crop_x0,
-                            int crop_x1, int crop_y0, int crop_y1, void* stream) {
+                            int h, int w, int y_offset, int full_h, int full_w, float step,
+                            float min_depth, float sigma_lo, float sigma_hi, int weight_b_only,
+                            int crop, int crop_x0, int crop_x1, int crop_y0, int crop_y1,
+                            void* stream) {
   const dvo::GNPlanes planes{obj_gray, obj_mask, ref_depth, ref_sigma, ref_gray,
                              ref_mask,  ref_gx,   ref_gy,    ref_gmask};
   const dvo::GNScalars s{h, w, step, min_depth, sigma_lo, sigma_hi,
-                         weight_b_only, crop, crop_x0, crop_x1, crop_y0, crop_y1};
+                         weight_b_only, crop, crop_x0, crop_x1, crop_y0, crop_y1,
+                         y_offset, full_h, full_w};
   gn_terms_kernel<<<dvo_gn_num_blocks(h * w), kThreads, 0, (cudaStream_t)stream>>>(
       planes, params, partials, s);
   return (int)cudaGetLastError();

@@ -427,8 +427,10 @@ extern "C" int dvo_gn_level(const float* obj_gray, const uint8_t* obj_mask,
                             float min_update_norm, float min_residual, void* stream) {
   const dvo::GNPlanes planes{obj_gray, obj_mask, ref_depth, ref_sigma, ref_gray,
                              ref_mask,  ref_gx,   ref_gy,    ref_gmask};
+  // The whole image: the block is the image, no row offset.
   const dvo::GNScalars s{h, w, step, min_depth, sigma_lo, sigma_hi,
-                         weight_b_only, crop, crop_x0, crop_x1, crop_y0, crop_y1};
+                         weight_b_only, crop, crop_x0, crop_x1, crop_y0, crop_y1,
+                         0, h, w};
   const LevelOut out{xi, residuals, update_norms, valid_counts, iterations, stamps};
 
   cudaLaunchConfig_t config = {};

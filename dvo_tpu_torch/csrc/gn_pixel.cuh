@@ -5,6 +5,14 @@
 // residual and the weight.  It follows the XLA twin
 // dvo_tpu/models/tracker.py:gn_terms and the port's gn_terms_plain
 // operation by operation (see dvo_kernels.h on -fmad=false).
+//
+// A launch may cover a row block of the image (the tile-sharded tracker,
+// dvo_tpu_torch/parallel/tracking.py): pixel p of the (h, w) block lies on
+// image row p / w + y_offset of the (full_h, full_w) image.  The object
+// planes and the reference depth and sigma are the block's, indexed by p;
+// the gather targets (reference gray, mask, gx, gy, gmask), the in-image
+// test, the corner clamps and the crop gate are the full image's.  A whole
+// image is the block with y_offset 0 and full_h, full_w = h, w.
 #pragma once
 
 #include "dvo_kernels.h"
@@ -24,9 +32,10 @@ struct GNPlanes {
 };
 
 struct GNScalars {
-  int h, w;
+  int h, w;  // the block
   float step, min_depth, sigma_lo, sigma_hi;
   int weight_b_only, crop, crop_x0, crop_x1, crop_y0, crop_y1;
+  int y_offset, full_h, full_w;  // the block's first row in the full image
 };
 
 // bilinear_masked (convert.cpp:128-177): invalid corners take the nearest
@@ -72,8 +81,9 @@ __device__ __forceinline__ bool gn_pixel(const GNPlanes& P, const GNScalars& s,
                                          const float* T, float fx, float fy, float cx,
                                          float cy, int p, float J[6], float* r,
                                          float* weight) {
-  const int yi = p / s.w;
-  const int xi = p - yi * s.w;
+  const int yb = p / s.w;
+  const int xi = p - yb * s.w;
+  const int yi = yb + s.y_offset;
   const float xs = (float)xi;
   const float ys = (float)yi;
 
@@ -90,16 +100,16 @@ __device__ __forceinline__ bool gn_pixel(const GNPlanes& P, const GNScalars& s,
   const float wx = Xj * fx / sz + cx;
   const float wy = Yj * fy / sz + cy;
 
-  const Corners c = corners(wx, wy, s.h, s.w);
+  const Corners c = corners(wx, wy, s.full_h, s.full_w);
   bool i2_valid;
-  const float i2 = sample_masked(P.ref_gray, P.ref_mask, s.w, c, &i2_valid);
-  const float gx = sample_dense(P.ref_gx, s.w, c);
-  const float gy = sample_dense(P.ref_gy, s.w, c);
-  const float gm = sample_dense(P.ref_gmask, s.w, c);
+  const float i2 = sample_masked(P.ref_gray, P.ref_mask, s.full_w, c, &i2_valid);
+  const float gx = sample_dense(P.ref_gx, s.full_w, c);
+  const float gy = sample_dense(P.ref_gy, s.full_w, c);
+  const float gm = sample_dense(P.ref_gmask, s.full_w, c);
 
   // gates (optimize.cpp:33-63)
   bool valid = depth >= s.min_depth && P.obj_mask[p] != 0 && i2_valid;
-  valid = valid && wx >= 0.0f && wx < (float)s.w && wy >= 0.0f && wy < (float)s.h;
+  valid = valid && wx >= 0.0f && wx < (float)s.full_w && wy >= 0.0f && wy < (float)s.full_h;
   valid = valid && in_front && gm > 0.9999f;
   if (s.crop) {
     valid = valid && xi >= s.crop_x0 && xi <= s.crop_x1 && yi >= s.crop_y0 &&

@@ -145,7 +145,14 @@ def state_pairs(dst, src) -> list:
 
 def copy_pairs(pairs) -> None:
     """destination <- source for every pair: one ``torch._foreach_copy_``
-    per dtype."""
+    per dtype, every source read before any destination is written.  A
+    step's new state may hold a tensor of the old one in another place (the
+    new reference frame's id is the old frame count, which the copy-back
+    also overwrites): such a source is cloned first, since one foreach copy
+    on the card writes its tensors in no fixed order."""
+    written = {d.untyped_storage().data_ptr() for d, _ in pairs if d.numel()}
+    pairs = [(d, s.clone() if s.data_ptr() != d.data_ptr()
+              and s.untyped_storage().data_ptr() in written else s) for d, s in pairs]
     groups = {}
     for d, s in pairs:
         if d.numel():

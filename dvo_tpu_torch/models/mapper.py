@@ -11,6 +11,9 @@ per-pixel planes in plain PyTorch, as ``depth_update_pallas`` prepares them
 in XLA, and ``ops/cuda/epipolar.epipolar_update`` takes them with the full
 ring.  ``regularize`` is ``ops/cuda/regularize``.  The kernels' plain
 versions follow the exact XLA twins, which are what the port is held to.
+Like ``dvo_tpu``'s, the depth update takes a row block of the reference
+maps (``y_offset``, ``full_shape``): the hook of the tile-sharded mapper
+(``parallel.mapping``).
 """
 
 from __future__ import annotations
@@ -140,18 +143,24 @@ def _warp_point(K, T, x, y, d):
 
 
 def epipolar_fields(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
-                    history: KeyframeHistory, reset_depth, cfg: MapperConfig):
+                    history: KeyframeHistory, reset_depth, cfg: MapperConfig,
+                    y_offset=0, full_shape=None):
     """The kernel's 24 per-pixel planes (order of ``ops/cuda/epipolar``)
     and the aged-out count: steps 1-4a and the triangulation coefficients
-    of ``dvo_tpu.models.mapper.depth_update``.
+    of ``dvo_tpu.models.mapper.depth_update``.  ``ref_depth``,
+    ``ref_sigma``, ``ref_age`` and ``reset_depth`` may be rows [y_offset,
+    y_offset + bh) of a ``full_shape`` image; ``obj`` and ``history`` stay
+    full-size.
 
     The plain version of what the fused entry computes in registers
     (``csrc/epipolar_pixel.cuh``: ``prepare``): every 3x3 product is an
     explicit sum in one fixed order rather than a batched matmul, whose
     summation order is the library's, so that a coordinate never differs by
     an ulp between the two and no ``rint``, gate or argmin flips."""
-    h, w = ref_depth.shape
-    xs, ys = pixel_grid(h, w, device=ref_depth.device)
+    bh, bw = ref_depth.shape
+    h, w = (bh, bw) if full_shape is None else full_shape
+    xs, ys = pixel_grid(bh, bw, device=ref_depth.device)
+    ys = ys + y_offset
     table = pose_table(obj.K, obj_xi_w, rel_xi, history)
     K = table[0].unbind()
     T_rel = table[1].unbind()
@@ -218,15 +227,15 @@ def epipolar_fields(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
 
 def depth_update_by_fields(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
                            history: KeyframeHistory, reset_depth,
-                           cfg: MapperConfig = MapperConfig()):
+                           cfg: MapperConfig = MapperConfig(), y_offset=0, full_shape=None):
     """``depth_update`` through the 24 prepared planes: ``epipolar_fields``
     in PyTorch ops, then ``ops/cuda/epipolar.epipolar_update`` (its plain
     version on CPU tensors, the kernel's fields entry on CUDA tensors).  The
     plain version of the fused entry."""
     fields, aged_out = epipolar_fields(obj, obj_xi_w, rel_xi, ref_depth, ref_sigma,
-                                       ref_age, history, reset_depth, cfg)
+                                       ref_age, history, reset_depth, cfg, y_offset, full_shape)
     depth, sigma, age, stats = epipolar.epipolar_update(
-        fields, history.gray, history.gx, history.gy, history.gmask, cfg
+        fields, history.gray, history.gx, history.gy, history.gmask, cfg, full_shape
     )
     return depth, sigma, age.to(ref_age.dtype), DepthUpdateStats(
         observed=stats[0], accepted=stats[1], rejected=stats[2], aged_out=aged_out,
@@ -234,20 +243,25 @@ def depth_update_by_fields(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, r
 
 
 def depth_update(obj: Scene, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
-                 history: KeyframeHistory, reset_depth, cfg: MapperConfig = MapperConfig()):
+                 history: KeyframeHistory, reset_depth, cfg: MapperConfig = MapperConfig(),
+                 y_offset=0, full_shape=None):
     """Per-pixel epipolar observation + fusion (Mapper::update,
     mapper.cpp:76-137) over the reference keyframe's base level.
     ``reset_depth`` (H, W) is the reset prior for rejected observations
-    (``ops.depth_filter.draw_reset_depth``).  CUDA tensors: the pose table
-    and one launch of the fused entry; CPU tensors: ``depth_update_by_fields``.
+    (``ops.depth_filter.draw_reset_depth``).  ``ref_depth``, ``ref_sigma``,
+    ``ref_age`` and ``reset_depth`` may be rows [y_offset, y_offset + bh) of
+    a ``full_shape`` image (``obj`` and ``history`` stay full-size); the
+    outputs are then those rows.  CUDA tensors: the pose table and one
+    launch of the fused entry; CPU tensors: ``depth_update_by_fields``.
     Returns (depth, sigma, age, DepthUpdateStats)."""
     if resolve_device(ref_depth) == "plain":
         return depth_update_by_fields(obj, obj_xi_w, rel_xi, ref_depth, ref_sigma, ref_age,
-                                      history, reset_depth, cfg)
+                                      history, reset_depth, cfg, y_offset, full_shape)
     depth, sigma, age, stats = epipolar.epipolar_fused(
         obj.gray, obj.mask, ref_depth, ref_sigma, ref_age, reset_depth,
         pose_table(obj.K, obj_xi_w, rel_xi, history),
         history.gray, history.gx, history.gy, history.gmask, history.head, history.count, cfg,
+        y_offset, full_shape,
     )  # head and count stay on the device: the kernel reads them there
     return depth, sigma, age, DepthUpdateStats(
         observed=stats[0], accepted=stats[1], rejected=stats[2], aged_out=stats[3],

@@ -35,13 +35,16 @@ class TrackResult:
 
 def gn_terms(obj_gray, obj_mask, ref_depth, ref_sigma,
              ref_gray, ref_mask, ref_gx, ref_gy, ref_gmask,
-             K, xi, level_index: int, cfg: TrackerConfig):
+             K, xi, level_index: int, cfg: TrackerConfig, y_offset=0, full_shape=None):
     """Plain-PyTorch normal-equation terms at twist ``xi`` — the
-    counterpart of ``dvo_tpu.models.tracker.gn_terms`` (whole image).
+    counterpart of ``dvo_tpu.models.tracker.gn_terms``: the object planes
+    and the reference depth and sigma cover rows [y_offset, y_offset + bh)
+    of a ``full_shape`` image (default: the block is the image), the gather
+    targets are always the full image.
     Returns (H (6, 6), g (6,), residual_sum, count)."""
     return gn_terms_plain(obj_gray, obj_mask, ref_depth, ref_sigma,
                           ref_gray, ref_mask, ref_gx, ref_gy, ref_gmask,
-                          K, lie.se3_exp(-xi), level_index, cfg)
+                          K, lie.se3_exp(-xi), level_index, cfg, y_offset, full_shape)
 
 
 def level_planes(obj: Scene, ref: Scene):

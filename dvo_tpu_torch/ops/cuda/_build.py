@@ -52,15 +52,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "dvo_gn_num_blocks": ([_I], _I),
-    "dvo_gn_terms": ([_P] * 11 + [_I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P], _I),
+    "dvo_gn_terms": ([_P] * 11 + [_I] * 5 + [_F] * 4 + [_I] * 6 + [_P], _I),
     "dvo_gn_level": ([_P] * 17 + [_I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,
                                   _I, _F, _F, _F, _P], _I),
     "dvo_regularize": ([_P] * 3 + [_I, _I, _F, _F, _P], _I),
     "dvo_epipolar_lanes": ([], _I),
     "dvo_epipolar_threads": ([], _I),
     "dvo_epipolar_pixels": ([], _I),
-    "dvo_epipolar": ([_P] * 9 + [_I, _I, _I, _I] + [_F] * 10 + [_P], _I),
-    "dvo_epipolar_fused": ([_P] * 17 + [_I] * 8 + [_F] * 11 + [_P], _I),
+    "dvo_epipolar": ([_P] * 9 + [_I] * 5 + [_F] * 10 + [_P], _I),
+    "dvo_epipolar_fused": ([_P] * 17 + [_I] * 10 + [_F] * 11 + [_P], _I),
     "dvo_framebuild": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "dvo_regularize_cull": ([_P] * 3 + [_I] * 4 + [_F, _F, _P], _I),
     "dvo_floor_empty": ([_P], _I),
@@ -240,3 +240,16 @@ def require(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def row_block(shape, y_offset, full_shape) -> tuple:
+    """The (full_h, full_w) of a row block of ``shape`` = (h, w) that starts
+    at image row ``y_offset`` (the block's own shape when ``full_shape`` is
+    None).  Raises unless the block is whole rows inside the image: the
+    kernels index the block's planes and the full image's with one width."""
+    h, w = shape
+    full_h, full_w = (h, w) if full_shape is None else (int(v) for v in full_shape)
+    if full_w != w or not 0 <= int(y_offset) <= full_h - h:
+        raise ValueError(f"a ({h}, {w}) row block at row {y_offset} does not lie in a "
+                         f"({full_h}, {full_w}) image")
+    return full_h, full_w

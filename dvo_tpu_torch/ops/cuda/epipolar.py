@@ -12,7 +12,10 @@ and gmask (C, H, W) bool, indexed by ring slot.  ``epipolar_fused`` is what
 and a small pose table and computes the 24 values per pixel in registers;
 its plain version is ``epipolar_fields`` + ``epipolar_update_plain``, which
 the mapper runs on CPU tensors.  All follow the exact XLA twin
-``dvo_tpu.models.mapper.depth_update``.
+``dvo_tpu.models.mapper.depth_update``, and like it take a row block of the
+reference keyframe (the tile-sharded mapper, ``parallel.mapping``): the
+per-pixel planes and the outputs are the block's rows, the object frame and
+the ring stay whole (``full_shape``).
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ def marched_samples(fields, cfg: MapperConfig = MapperConfig()):
 
 def work(shape, slots_in_use: int, samples: int):
     """(bytes, float operations) of one ``epipolar_update`` call at
-    ``shape`` = (h, w) whose pixels refer to ``slots_in_use`` keyframe slots
+    ``shape`` = (h, w), the block's, whose pixels refer to ``slots_in_use``
+    keyframe slots
     and march ``samples`` samples in all (``marched_samples``): what these
     inputs need, not the whole ring and not ``max_steps`` for every pixel."""
     n = shape[0] * shape[1]
@@ -128,11 +132,14 @@ def march_plain(fields, born_gray, cfg: MapperConfig = MapperConfig()):
 
 
 def epipolar_update_plain(fields, born_gray, born_gx, born_gy, born_gmask,
-                          cfg: MapperConfig = MapperConfig()):
-    """March, match, triangulate, estimate sigma and fuse for every pixel.
-    Returns (depth (H, W), sigma (H, W), age (H, W) int32,
+                          cfg: MapperConfig = MapperConfig(), full_shape=None):
+    """March, match, triangulate, estimate sigma and fuse for every pixel of
+    a block of rows: ``fields`` (24, bh, W) are the block's planes (they
+    carry its rows' coordinates), the ring is the ``full_shape`` image
+    (default: the block is the image).
+    Returns (depth (bh, W), sigma (bh, W), age (bh, W) int32,
     stats (3,) int32: observed, accepted, rejected)."""
-    _, h, w = fields.shape
+    h, w = fields.shape[1:] if full_shape is None else full_shape
     f = fields
     sx, sy, dx, dy = f[F_START_X], f[F_START_Y], f[F_DIR_X], f[F_DIR_Y]
     length = f[F_LENGTH]
@@ -199,6 +206,8 @@ def epipolar_update_plain(fields, born_gray, born_gx, born_gy, born_gmask,
 
 
 def _ring_checks(born_gray, born_gx, born_gy, born_gmask, shape, dev):
+    """The ring's four (C, H, W) stacks at the full image's ``shape``;
+    returns C."""
     c = born_gray.shape[0]
     for name, t in (("born_gray", born_gray), ("born_gx", born_gx), ("born_gy", born_gy)):
         _build.require(t, name, torch.float32, (c,) + tuple(shape), dev)
@@ -216,15 +225,18 @@ def _scalars(cfg: MapperConfig):
 
 
 def epipolar_update(fields, born_gray, born_gx, born_gy, born_gmask,
-                    cfg: MapperConfig = MapperConfig()):
+                    cfg: MapperConfig = MapperConfig(), full_shape=None):
     """``epipolar_update_plain`` for CPU tensors; the fields entry of
-    ``csrc/epipolar.cu`` for CUDA tensors (it launches or raises)."""
+    ``csrc/epipolar.cu`` for CUDA tensors (it launches or raises).  The
+    block's rows lie anywhere in the image: the fields carry them."""
     if resolve_device(fields) == "plain":
-        return epipolar_update_plain(fields, born_gray, born_gx, born_gy, born_gmask, cfg)
+        return epipolar_update_plain(fields, born_gray, born_gx, born_gy, born_gmask, cfg,
+                                     full_shape)
     _, h, w = fields.shape
+    full = _build.row_block((h, w), 0, full_shape)
     dev = fields.device
     _build.require(fields, "fields", torch.float32, (N_FIELDS, h, w), dev)
-    c = _ring_checks(born_gray, born_gx, born_gy, born_gmask, (h, w), dev)
+    c = _ring_checks(born_gray, born_gx, born_gy, born_gmask, full, dev)
 
     depth = torch.empty((h, w), dtype=torch.float32, device=dev)
     sigma = torch.empty_like(depth)
@@ -233,7 +245,7 @@ def epipolar_update(fields, born_gray, born_gx, born_gy, born_gmask,
     code = _build.library().dvo_epipolar(
         fields.data_ptr(), born_gray.data_ptr(), born_gx.data_ptr(), born_gy.data_ptr(),
         born_gmask.data_ptr(), depth.data_ptr(), sigma.data_ptr(), age.data_ptr(),
-        stats.data_ptr(), h, w, c, cfg.max_steps + 2, *_scalars(cfg),
+        stats.data_ptr(), *full, h, c, cfg.max_steps + 2, *_scalars(cfg),
         _build.stream_handle(dev),
     )
     _build.check(code, "epipolar")
@@ -243,14 +255,16 @@ def epipolar_update(fields, born_gray, born_gx, born_gy, born_gmask,
 
 def epipolar_fused(obj_gray, obj_mask, ref_depth, ref_sigma, ref_age, reset_depth, table,
                    born_gray, born_gx, born_gy, born_gmask, head, count,
-                   cfg: MapperConfig = MapperConfig()):
+                   cfg: MapperConfig = MapperConfig(), y_offset=0, full_shape=None):
     """The fused entry of ``csrc/epipolar.cu``: the whole depth update of
     CUDA tensors in one launch (it launches or raises; CPU tensors go through
     ``models.mapper.depth_update``, which runs the plain versions).
 
     ``obj_gray``/``obj_mask``: the object frame's base level; ``ref_depth``,
     ``ref_sigma`` float32 and ``ref_age`` int32: the reference keyframe's
-    maps; ``reset_depth``: the depth filter's reset plane; ``table``: the
+    maps, or their rows [y_offset, y_offset + bh) of a ``full_shape`` image
+    (default: the whole image); ``reset_depth``: the depth filter's reset
+    plane for the same pixels; ``table``: the
     (2 + C, 16) pose table of ``models.mapper.pose_table``; the ring stacks
     (C, H, W); ``head``/``count``: the ring's newest slot and live keyframes,
     0-d int32 tensors on the card, which the kernel reads there (nothing is
@@ -261,13 +275,14 @@ def epipolar_fused(obj_gray, obj_mask, ref_depth, ref_sigma, ref_age, reset_dept
         raise ValueError("epipolar_fused takes CUDA tensors; on the CPU use "
                          "models.mapper.depth_update")
     h, w = ref_depth.shape
+    full = _build.row_block((h, w), y_offset, full_shape)
     dev = ref_depth.device
-    for name, t in (("obj_gray", obj_gray), ("ref_depth", ref_depth), ("ref_sigma", ref_sigma),
-                    ("reset_depth", reset_depth)):
-        _build.require(t, name, torch.float32, (h, w), dev)
-    _build.require(obj_mask, "obj_mask", torch.bool, (h, w), dev)
+    for name, t, shape in (("obj_gray", obj_gray, full), ("ref_depth", ref_depth, (h, w)),
+                           ("ref_sigma", ref_sigma, (h, w)), ("reset_depth", reset_depth, (h, w))):
+        _build.require(t, name, torch.float32, shape, dev)
+    _build.require(obj_mask, "obj_mask", torch.bool, full, dev)
     _build.require(ref_age, "ref_age", torch.int32, (h, w), dev)
-    c = _ring_checks(born_gray, born_gx, born_gy, born_gmask, (h, w), dev)
+    c = _ring_checks(born_gray, born_gx, born_gy, born_gmask, full, dev)
     _build.require(table, "table", torch.float32, (2 + c, TABLE_ROW), dev)
     _build.require(head, "head", torch.int32, (), dev)
     _build.require(count, "count", torch.int32, (), dev)
@@ -281,7 +296,8 @@ def epipolar_fused(obj_gray, obj_mask, ref_depth, ref_sigma, ref_age, reset_dept
         ref_age.data_ptr(), reset_depth.data_ptr(), table.data_ptr(), born_gray.data_ptr(),
         born_gx.data_ptr(), born_gy.data_ptr(), born_gmask.data_ptr(), depth.data_ptr(),
         sigma.data_ptr(), age.data_ptr(), stats.data_ptr(), head.data_ptr(), count.data_ptr(),
-        h, w, c, cfg.max_steps + 2, cfg.crop_x[0], cfg.crop_x[1], cfg.crop_y[0], cfg.crop_y[1],
+        *full, h, int(y_offset), c, cfg.max_steps + 2,
+        cfg.crop_x[0], cfg.crop_x[1], cfg.crop_y[0], cfg.crop_y[1],
         cfg.min_search_depth, *_scalars(cfg), _build.stream_handle(dev),
     )
     _build.check(code, "epipolar (fused)")

@@ -27,12 +27,15 @@ from dvo_tpu_torch.models.odometry import (
     rgbd_run_batched,
     select_streams,
 )
-from dvo_tpu_torch.parallel.mesh import make_mesh, world_size
+from dvo_tpu_torch.parallel.mesh import all_gather_rows, make_mesh, wire, world_size
 
 
-def stream_mesh(n_devices=None):
-    """1-D mesh over the ``stream`` axis (default: every rank)."""
-    return make_mesh((n_devices if n_devices is not None else world_size(),), ("stream",))
+def stream_mesh(n_devices=None, device: str = "cuda"):
+    """1-D mesh over the ``stream`` axis (default: every rank), on the
+    ranks' cards or, with ``device="cpu"``, their CPUs
+    (``mesh.make_mesh``)."""
+    return make_mesh((n_devices if n_devices is not None else world_size(),), ("stream",),
+                     device)
 
 
 def _rows(mesh, streams: int):
@@ -49,39 +52,14 @@ def _rows(mesh, streams: int):
     return slice(r * per, (r + 1) * per), mesh.get_group("stream")
 
 
-def _all_gather(local: list, group) -> list:
-    """Each tensor of ``local`` (one per leaf, leading axis the rank's
-    streams) concatenated over the group's ranks along that axis: one
-    ``all_gather`` per dtype (bool travels as uint8)."""
-    world = dist.get_world_size(group)
-    out = [None] * len(local)
-    by_dtype = {}
-    for i, t in enumerate(local):
-        by_dtype.setdefault(t.dtype, []).append(i)
-    for dtype, idx in by_dtype.items():
-        flat = torch.cat([local[i].reshape(-1) for i in idx])
-        if dtype == torch.bool:
-            flat = flat.view(torch.uint8)
-        parts = [torch.empty_like(flat) for _ in range(world)]
-        dist.all_gather(parts, flat, group=group)
-        if dtype == torch.bool:
-            parts = [p.view(torch.bool) for p in parts]
-        off = 0
-        for i in idx:
-            t, n = local[i], local[i].numel()
-            out[i] = torch.cat([p[off:off + n].view(t.shape) for p in parts])
-            off += n
-    return out
-
-
 def _gather_generators(mine: tuple, group) -> tuple:
     """The generators of all B streams on every rank, from each rank's own
     (``mine``): this rank's live objects and new ones set to the other
     ranks' states."""
     states = torch.stack([g.get_state() for g in mine])
-    wire = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
-    parts = [torch.empty_like(states, device=wire) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, states.to(wire), group=group)
+    on = wire(group)
+    parts = [torch.empty_like(states, device=on) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, states.to(on), group=group)
     out = []
     for r, part in enumerate(parts):
         if r == dist.get_rank(group):
@@ -95,7 +73,7 @@ def _gather_generators(mine: tuple, group) -> tuple:
 
 
 def _gather(tree, group):
-    gathered = iter(_all_gather(graphed.leaves(tree), group))
+    gathered = iter(all_gather_rows(graphed.leaves(tree), group))
     out = graphed.tree_map(lambda _: next(gathered), tree)
     if isinstance(getattr(tree, "generator", None), tuple):
         out = dataclasses.replace(out, generator=_gather_generators(tree.generator, group))

@@ -106,11 +106,13 @@ def warp_point(K, T, x, y, d):
     return px * fx / safe + cx, py * fy / safe + cy, bool(pz > F(1e-6))
 
 
-def prepare(raw, y, x, h, w, capacity):
-    """``dvo::epi::prepare``: (pixel, aged_out)."""
+def prepare(raw, yb, x, h, w, y_offset, capacity):
+    """``dvo::epi::prepare`` for the block's pixel (yb, x), on image row
+    yb + y_offset of the h x w image: (pixel, aged_out)."""
     K, T = raw.table[0], raw.table[1]
-    px = SimpleNamespace(ref_depth=raw.ref_depth[y, x], ref_sigma=raw.ref_sigma[y, x],
-                         ref_age=int(raw.ref_age[y, x]), reset_d=raw.reset_depth[y, x])
+    y = yb + y_offset
+    px = SimpleNamespace(ref_depth=raw.ref_depth[yb, x], ref_sigma=raw.ref_sigma[yb, x],
+                         ref_age=int(raw.ref_age[yb, x]), reset_d=raw.reset_depth[yb, x])
     crop = raw.crop_x0 <= x <= raw.crop_x1 and raw.crop_y0 <= y <= raw.crop_y1
     if not crop:        # nothing else of the pixel is computed
         px.base_ok, px.slot = False, 0
@@ -278,7 +280,7 @@ class EmulatedLibrary:
     def _run(self, pixel_of, ring, out, s):
         stats = np.zeros(4, np.int32)
         with np.errstate(all="ignore"):
-            for y in range(s.h):
+            for y in range(s.bh):       # the block's rows
                 for x in range(s.w):
                     px, aged_out = pixel_of(y, x)
                     m = march(ring.gray[px.slot], px, s, self.lanes) if px.base_ok else None
@@ -287,48 +289,51 @@ class EmulatedLibrary:
         out.stats[:] = stats
         return 0
 
-    def _common(self, ring_ptrs, out_ptrs, h, w, capacity, steps, floats):
+    def _common(self, ring_ptrs, out_ptrs, h, w, bh, capacity, steps, floats):
         f, u8, i32 = ctypes.c_float, ctypes.c_uint8, ctypes.c_int32
-        s = SimpleNamespace(h=h, w=w, capacity=capacity, steps=steps,
+        s = SimpleNamespace(h=h, w=w, bh=bh, capacity=capacity, steps=steps,
                             **dict(zip(_SCALARS, floats)))
         gray, gx, gy, gmask = ring_ptrs
         ring = SimpleNamespace(gray=_arr(gray, (capacity, h, w), f), gx=_arr(gx, (capacity, h, w), f),
                                gy=_arr(gy, (capacity, h, w), f),
                                gmask=_arr(gmask, (capacity, h, w), u8))
         d, sg, a, st = out_ptrs
-        out = SimpleNamespace(depth=_arr(d, (h, w), f), sigma=_arr(sg, (h, w), f),
-                              age=_arr(a, (h, w), i32), stats=_arr(st, (4,), i32))
+        out = SimpleNamespace(depth=_arr(d, (bh, w), f), sigma=_arr(sg, (bh, w), f),
+                              age=_arr(a, (bh, w), i32), stats=_arr(st, (4,), i32))
         return s, ring, out
 
     def dvo_epipolar(self, fields, gray, gx, gy, gmask, depth, sigma, age, stats, h, w,
-                     capacity, steps, *rest):
+                     block_h, capacity, steps, *rest):
         *floats, stream = rest
-        assert len(floats) == len(_SCALARS)
+        assert len(floats) == len(_SCALARS) and 0 <= block_h <= h
         s, ring, out = self._common((gray, gx, gy, gmask), (depth, sigma, age, stats), h, w,
-                                    capacity, steps, floats)
-        planes = _arr(fields, (epipolar.N_FIELDS, h, w), ctypes.c_float)
+                                    block_h, capacity, steps, floats)
+        planes = _arr(fields, (epipolar.N_FIELDS, block_h, w), ctypes.c_float)
         return self._run(lambda y, x: (load_fields(planes, y, x, capacity), False), ring, out, s)
 
     def dvo_epipolar_fused(self, obj_gray, obj_mask, ref_depth, ref_sigma, ref_age, reset_depth,
                            table, gray, gx, gy, gmask, depth, sigma, age, stats, head, count,
-                           h, w, capacity, steps, cx0, cx1, cy0, cy1, min_search_depth, *rest):
+                           h, w, block_h, y_offset, capacity, steps, cx0, cx1, cy0, cy1,
+                           min_search_depth, *rest):
         *floats, stream = rest
-        assert len(floats) == len(_SCALARS)
+        assert len(floats) == len(_SCALARS) and 0 <= y_offset <= h - block_h
         f = ctypes.c_float
         s, ring, out = self._common((gray, gx, gy, gmask), (depth, sigma, age, stats), h, w,
-                                    capacity, steps, floats)
+                                    block_h, capacity, steps, floats)
+        bh = block_h
         raw = SimpleNamespace(
             obj_gray=_arr(obj_gray, (h, w), f), obj_mask=_arr(obj_mask, (h, w), ctypes.c_uint8),
-            ref_depth=_arr(ref_depth, (h, w), f), ref_sigma=_arr(ref_sigma, (h, w), f),
-            ref_age=_arr(ref_age, (h, w), ctypes.c_int32),
-            reset_depth=_arr(reset_depth, (h, w), f),
+            ref_depth=_arr(ref_depth, (bh, w), f), ref_sigma=_arr(ref_sigma, (bh, w), f),
+            ref_age=_arr(ref_age, (bh, w), ctypes.c_int32),
+            reset_depth=_arr(reset_depth, (bh, w), f),
             table=_arr(table, (2 + capacity, epipolar.TABLE_ROW), f),
             # head and count: one int32 each in device memory (pointers)
             head=int(_arr(head, (1,), ctypes.c_int32)[0]),
             count=int(_arr(count, (1,), ctypes.c_int32)[0]),
             crop_x0=cx0, crop_x1=cx1, crop_y0=cy0, crop_y1=cy1,
             min_search_depth=min_search_depth)
-        return self._run(lambda y, x: prepare(raw, y, x, h, w, capacity), ring, out, s)
+        return self._run(lambda y, x: prepare(raw, y, x, h, w, y_offset, capacity), ring, out,
+                         s)
 
 
 @pytest.fixture
@@ -473,7 +478,7 @@ def test_field_arithmetic_equals_epipolar_fields(name, capacity, count, max_age,
     with np.errstate(all="ignore"):
         for y in range(h):
             for x in range(w):
-                px, aged = prepare(raw, y, x, h, w, capacity)
+                px, aged = prepare(raw, y, x, h, w, 0, capacity)
                 n_aged += aged
                 n_ok += px.base_ok
                 in_crop = CFG.crop_x[0] <= x <= CFG.crop_x[1] and CFG.crop_y[0] <= y <= CFG.crop_y[1]

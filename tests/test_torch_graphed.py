@@ -159,6 +159,19 @@ def test_copy_back_covers_every_tensor(sequence, kind, layout):
     assert reached == tensor_fields
 
 
+@pytest.mark.parametrize("order", ["count_first", "frame_id_first"])
+def test_copy_back_reads_every_source_before_writing(order):
+    """The copy-back's sources are read before any destination is written,
+    whatever the order of the pairs: a step's new reference frame id is the
+    old frame count, which the same copy overwrites with the count + 1 (on
+    the card one foreach copy writes its tensors in no fixed order)."""
+    count = torch.tensor(7, dtype=torch.int32)
+    frame_id = torch.tensor(0, dtype=torch.int32)
+    pairs = [(count, count + 1), (frame_id, count)]
+    graphed.copy_pairs(pairs if order == "count_first" else pairs[::-1])
+    assert int(count) == 8 and int(frame_id) == 7
+
+
 def test_state_layout_change_raises(sequence):
     state = _mono_init(sequence)
     other = dataclasses.replace(state, vel=torch.zeros(5))

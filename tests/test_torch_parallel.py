@@ -84,19 +84,39 @@ def test_initialize_and_meshes_in_one_process():
     """One process: ``initialize`` joins nothing; a mesh makes a one-rank
     gloo group of its own, and every mesh has dvo_tpu's axis names."""
     assert not dist.is_initialized()
-    tdist.initialize()
+    tdist.initialize(device="cpu")
     assert not dist.is_initialized()
     try:
-        m = tstreams.stream_mesh()
+        m = tstreams.stream_mesh(device="cpu")
         assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
         assert m.mesh_dim_names == ("stream",) and m.size() == 1
-        assert dict(zip(tmesh.vo_mesh().mesh_dim_names, tmesh.vo_mesh().shape)) == {
-            "kf": 1, "tile": 1}
-        assert tdist.pod_mesh().mesh_dim_names == ("kf", "tile")
+        vo = tmesh.vo_mesh(device="cpu")
+        assert dict(zip(vo.mesh_dim_names, vo.shape)) == {"kf": 1, "tile": 1}
+        assert tdist.pod_mesh(device="cpu").mesh_dim_names == ("kf", "tile")
         with pytest.raises(ValueError, match="needs 2 devices, have 1"):
-            tmesh.make_mesh((2,), ("stream",))
+            tmesh.make_mesh((2,), ("stream",), device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tmesh.make_mesh((1,), ("tile",)), lambda: tmesh.vo_mesh(),
+    lambda: tstreams.stream_mesh(), lambda: tdist.pod_mesh(), lambda: tdist.initialize(),
+    lambda: tdist.initialize(num_processes=2, process_id=0),
+    lambda: tmesh.ensure_group(),
+], ids=["make_mesh", "vo_mesh", "stream_mesh", "pod_mesh", "initialize",
+        "initialize_two_processes", "ensure_group"])
+def test_parallel_entry_points_need_a_card_unless_asked_for_the_cpu(call, monkeypatch):
+    """Without a card every mesh and ``initialize`` raise with the reason
+    unless ``device="cpu"`` is given: nothing falls back to gloo on the CPU
+    by itself, and no group is joined."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        call()
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="expected 'cuda' or 'cpu'"):
+        tmesh.make_mesh((1,), ("tile",), device="gpu")
 
 
 class _Mesh:
@@ -135,8 +155,8 @@ from dvo_tpu_torch.models.graphed import leaves
 from dvo_tpu_torch.parallel import initialize, monocular_run_streams, rgbd_run_streams, stream_mesh
 
 folder = sys.argv[1]
-initialize()
-mesh = stream_mesh()
+initialize(device="cpu")
+mesh = stream_mesh(device="cpu")
 with open(os.path.join(folder, "cfg.pkl"), "rb") as f:
     cfg_m, cfg_r = pickle.load(f)
 d = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(folder, "in.npz")).items()}
