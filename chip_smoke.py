@@ -103,26 +103,41 @@ Phases, one line each (or a few):
      sharded  — the sharded solvers (``parallel.{tracking,mapping,ba}``).
                 First, on one card without collectives, ``gn.cu`` on 2 and
                 4 row blocks (nonzero row offsets) of the mono frame's
-                120x160 and 60x80 levels, each block against its plain
-                version and the blocks' sums against the whole-image launch
-                (rtol 1e-5, atol 1e-4, the count exact), and the fused
-                epipolar entry on 2 and 4 row blocks of the analytic rig,
-                each block equal bitwise to the whole launch's rows, its
-                counts adding up; the 30x160 GN block and a 30x160 epipolar
-                block timed.  Then ``__graft_entry__.dryrun_multichip``'s
-                step (``sharded_track`` at 120x160 x 3 levels,
+                120x160 and 60x80 levels, of the step's 120x160 level and of
+                a 212x256 level (RGB-D shapes), each block against its plain
+                version, equal bitwise to a second launch, and the blocks'
+                sums against the whole-image launch (rtol 1e-5, atol 1e-4,
+                the count exact); the fused epipolar entry on 2 and 4 row
+                blocks of the analytic rig, each block equal bitwise to the
+                whole launch's rows, its counts adding up; ``gn.cu`` timed
+                on the 30x160 and 106x256 blocks (one launch, and the
+                ``gn_terms`` call) beside its bound and the launch floor, a
+                30x160 epipolar block timed; the step kernel against its
+                plain version (step 0, step 1, a frozen step, no valid
+                pixel, no Cholesky factor).  Then
+                ``__graft_entry__.dryrun_multichip``'s step
+                (``sharded_track`` at 120x160 x 3 levels,
                 ``sharded_depth_update`` against a 4-slot ring at a 0.2 m
                 offset, ``bundle_adjust_sharded`` over a window of 7 at
-                212x256, 2 iterations) on a one-rank NCCL group, each part
-                equal bitwise to the single-device port (the track to the
-                stepwise track: the same ``gn.cu`` launches), no host sync
-                in the tracking loop; and in 4 processes on this card in a
-                gloo group on a (kf 2, tile 2) mesh (this script started
-                with ``--sharded-rank``), every rank equal, held against the
-                single-device port (track rtol 1e-4 atol 2e-5, the maps
-                bitwise, BA twists 1e-3 and costs 5e-3): ms per part and the
-                launches of every rank.  With four cards, the same step on
-                NCCL through ``torchrun --nproc-per-node 4``.
+                212x256, 2 iterations) and ``sharded_track`` on a 212x256 x
+                4 pair with ``DVOConfig.rgbd()``'s tracker, on a one-rank
+                NCCL group: both tracks within rtol 1e-4 atol 2e-5 of
+                ``track`` (the level kernel) and of the stepwise track and
+                equal bitwise over two calls, ``gn`` once per GN step and
+                ``gn_step`` once per GN step and once per sharded level (its
+                seed), at most 3 device ops a GN step, no host sync in the
+                tracking loop, mapping and BA equal bitwise to the
+                single-device port; the tracking part on the eager loop
+                (``eager_sharded_track_level``: ``gn_iteration`` fed
+                ``gn.cu``, ~250 ops a step) and on the
+                card's route in turns (A, B, B, A); and in 4
+                processes on this card in a gloo group on a (kf 2, tile 2)
+                mesh (this script started with ``--sharded-rank``), every
+                rank equal, held against the single-device port (tracks
+                rtol 1e-4 atol 2e-5, the maps bitwise, BA twists 1e-3 and
+                costs 5e-3): ms per part and the launches of every rank.
+                With four cards, the same step on NCCL through ``torchrun
+                --nproc-per-node 4``.
   9. cli      — ``python -m dvo_tpu_torch.run`` (its ``main``, in this
                 process) on PNG sequences written from the frames above with
                 a zlib writer, and calibration YAMLs: RGB-D (the 64 frames of
@@ -1518,8 +1533,11 @@ def parallel_phase(dev, card_line, cfg, cfg_r, inputs, rgbd_inputs):
 # The sharded solvers (dvo_tpu_torch.parallel.{tracking,mapping,ba}) on the
 # step of __graft_entry__.dryrun_multichip: tracking at 120x160 x 3 levels,
 # the depth update against a 4-slot ring with a 0.2 m offset, BA over a
-# window of 7 at 212x256 with 2 iterations; one (kf 2, tile 2) mesh.
+# window of 7 at 212x256 with 2 iterations; one (kf 2, tile 2) mesh.  And
+# the track at the RGB-D path's level shapes (DVOConfig.rgbd(): 212x256 x 4;
+# at tile 2 the two finer levels sharded, the two coarser on gn_level).
 SHARD_H, SHARD_W, SHARD_LEVELS = 120, 160, 3
+SHARD_RGBD_H, SHARD_RGBD_W = 212, 256
 SHARD_MOTION = (0.008, -0.003, 0.004, 0.001, -0.002, 0.001)  # object frame vs reference
 SHARD_MAP_OFFSET = (0.2, 0.0, 0.0, 0.0, 0.0, 0.0)
 SHARD_RING = 4
@@ -1530,6 +1548,7 @@ SHARD_JOIN_S = 600           # each rank is joined with this timeout
 SHARD_TILES = (2, 4)         # row blocks of the kernels' checks
 SHARD_GN_RTOL, SHARD_GN_ATOL = 1e-5, 1e-4      # block sums vs the whole launch
 SHARD_XI_RTOL, SHARD_XI_ATOL = 1e-4, 2e-5      # sharded track vs the level kernel's
+SHARD_TURNS = ("eager", "card", "card", "eager")  # the tracking part's routes, in turns
 SHARD_BA_XI_TOL, SHARD_BA_COST_RTOL = 1e-3, 5e-3
 
 
@@ -1538,8 +1557,10 @@ def sharded_inputs(dev):
     ``dryrun_multichip``'s: a textured 120x160 reference with a smooth depth
     and, one motion step away, its inverse warp (3 levels each); a ring of 4
     copies of the reference at poses 5 mm apart; a reset plane; a window of
-    7 copies of a 212x256 textured keyframe at poses 4 mm apart."""
-    from dvo_tpu_torch.config import BAConfig, MapperConfig, TrackerConfig
+    7 copies of a 212x256 textured keyframe at poses 4 mm apart; and a
+    212x256 x 4 pair as the first, tracked with ``DVOConfig.rgbd()``'s
+    tracker config."""
+    from dvo_tpu_torch.config import BAConfig, DVOConfig, MapperConfig, TrackerConfig
     from dvo_tpu_torch.models.ba import window_from_history
     from dvo_tpu_torch.models.frame import build_frame_with_depth, device_int
     from dvo_tpu_torch.models.history import KeyframeHistory, push
@@ -1554,10 +1575,13 @@ def sharded_inputs(dev):
         K = torch.tensor([[1.0 * w, 0, w / 2], [0, 1.0 * w, h / 2], [0, 0, 1]], device=dev)
         return img, depth, torch.full_like(depth, 0.1), K
 
-    img, depth, sigma, K = scene(SHARD_H, SHARD_W)
-    grays, masks = render(img, depth, K, SHARD_MOTION, 1)
-    ref = build_frame_with_depth(grays[0], masks[0], depth, sigma, K, SHARD_LEVELS, 0, 0)
-    obj = build_frame_with_depth(grays[1], masks[1], depth, sigma, K, SHARD_LEVELS, 0, 1)
+    def pair(h, w, levels):
+        img, depth, sigma, K = scene(h, w)
+        grays, masks = render(img, depth, K, SHARD_MOTION, 1)
+        return (build_frame_with_depth(grays[0], masks[0], depth, sigma, K, levels, 0, 0),
+                build_frame_with_depth(grays[1], masks[1], depth, sigma, K, levels, 0, 1))
+
+    ref, obj = pair(SHARD_H, SHARD_W, SHARD_LEVELS)
     history = KeyframeHistory.create(SHARD_RING, SHARD_H, SHARD_W, device=dev)
     for i in range(SHARD_RING):
         xi = torch.tensor([0.005 * i, 0, 0, 0, 0, 0], dtype=torch.float32, device=dev)
@@ -1573,16 +1597,20 @@ def sharded_inputs(dev):
         xi = torch.tensor([0.004 * i, 0.001 * i, 0, 0, 0, 0], dtype=torch.float32, device=dev)
         ring = push(ring, dataclasses.replace(b_ref, xi=xi, frame_id=device_int(i, dev)))
     window = window_from_history(ring, b_K, SHARD_BA_WINDOW)
+    cfg_r = DVOConfig.rgbd()
+    ref_r, obj_r = pair(SHARD_RGBD_H, SHARD_RGBD_W, cfg_r.pyramid.levels)
     return dict(obj=obj, ref=ref, history=history, reset=reset, window=window,
                 cfg_t=TrackerConfig(), cfg_m=cfg_m,
-                cfg_ba=BAConfig(window=SHARD_BA_WINDOW, iterations=SHARD_BA_ITERS))
+                cfg_ba=BAConfig(window=SHARD_BA_WINDOW, iterations=SHARD_BA_ITERS),
+                obj_r=obj_r, ref_r=ref_r, cfg_tr=cfg_r.tracker)
 
 
 def sharded_step(mesh, inp):
     """``dryrun_multichip``'s step through the port's sharded functions on
     ``mesh``: ``sharded_track``, ``sharded_depth_update`` at the tracked pose
     plus SHARD_MAP_OFFSET (tracking alone converges to the small motion,
-    whose baseline observes little), ``bundle_adjust_sharded`` over ``kf``.
+    whose baseline observes little), ``bundle_adjust_sharded`` over ``kf``;
+    then ``sharded_track`` on the RGB-D pair (part ``tracking_rgbd``).
     Each part runs with the launch counts set to 0 just before and read just
     after.  Returns (outputs, ms by part, launches by part)."""
     from dvo_tpu_torch import lie
@@ -1603,7 +1631,9 @@ def sharded_step(mesh, inp):
         inp["obj"].base, xi_map, xi_map, base.depth, base.sigma, age0, inp["history"],
         inp["reset"], inp["cfg_m"], mesh))
     ba = part("ba", lambda: bundle_adjust_sharded(inp["window"], inp["cfg_ba"], mesh, axis="kf"))
-    out = dict(xi=xi, xi_map=xi_map, depth=d, sigma=s, age=a,
+    xi_r = part("tracking_rgbd", lambda: sharded_track(inp["obj_r"], inp["ref_r"], inp["cfg_tr"],
+                                                        mesh))
+    out = dict(xi=xi, xi_rgbd=xi_r, xi_map=xi_map, depth=d, sigma=s, age=a,
                stats=torch.stack([getattr(st, k) for k in STAT_NAMES]),
                ba_xi=ba.xi, ba_depth=ba.depth, ba_costs=ba.costs, ba_counts=ba.counts)
     return out, ms, launches
@@ -1611,8 +1641,8 @@ def sharded_step(mesh, inp):
 
 def sharded_references(inp, out):
     """The single-device port on the step's inputs: ``track`` (the level
-    kernel), ``depth_update`` at the pose the sharded step mapped at, and
-    ``bundle_adjust``.  Returns (the outputs, each part's ms: host clock
+    kernel), ``depth_update`` at the pose the sharded step mapped at,
+    ``bundle_adjust``, and ``track`` on the RGB-D pair.  Returns (the outputs, each part's ms: host clock
     around the second of two calls, ending in a synchronise)."""
     from dvo_tpu_torch.models.ba import bundle_adjust
     from dvo_tpu_torch.models.mapper import depth_update
@@ -1625,7 +1655,8 @@ def sharded_references(inp, out):
         tracking=lambda: track(inp["obj"], inp["ref"], inp["cfg_t"]).xi,
         mapping=lambda: depth_update(inp["obj"].base, xi_map, xi_map, base.depth, base.sigma,
                                      age0, inp["history"], inp["reset"], inp["cfg_m"]),
-        ba=lambda: bundle_adjust(inp["window"], inp["cfg_ba"]))
+        ba=lambda: bundle_adjust(inp["window"], inp["cfg_ba"]),
+        tracking_rgbd=lambda: track(inp["obj_r"], inp["ref_r"], inp["cfg_tr"]).xi)
     got, ms = {}, {}
     for name, fn in parts.items():
         fn()
@@ -1633,21 +1664,18 @@ def sharded_references(inp, out):
         ms[name] = 1e3 * secs
     d, s, a, st = got["mapping"]
     ba = got["ba"]
-    return dict(xi=got["tracking"], depth=d, sigma=s, age=a,
+    return dict(xi=got["tracking"], xi_rgbd=got["tracking_rgbd"], depth=d, sigma=s, age=a,
                 stats=torch.stack([getattr(st, k) for k in STAT_NAMES]),
                 ba_xi=ba.xi, ba_depth=ba.depth, ba_costs=ba.costs, ba_counts=ba.counts), ms
 
 
 def check_sharded_result(label, got, want):
     """The sharded step's outputs against the single-device port's:
-    tracking within SHARD_XI_*, the maps and counts bitwise, BA's twists
+    both tracks within SHARD_XI_*, the maps and counts bitwise, BA's twists
     within SHARD_BA_XI_TOL and its costs within SHARD_BA_COST_RTOL.
     Returns the differences."""
     got = {k: v.to(want["depth"].device) for k, v in got.items()}
-    dxi = (got["xi"] - want["xi"]).abs()
-    if not bool((dxi <= SHARD_XI_ATOL + SHARD_XI_RTOL * want["xi"].abs()).all()):
-        raise AssertionError(f"sharded {label}: track {got['xi'].tolist()} vs "
-                             f"{want['xi'].tolist()}")
+    dxi = {k: track_within(f"sharded {label}", k, got[k], want[k]) for k in ("xi", "xi_rgbd")}
     for k in ("depth", "sigma", "age", "stats"):
         if not torch.equal(got[k], want[k]):
             raise AssertionError(f"sharded {label}: mapping {k} differs from depth_update's")
@@ -1658,8 +1686,17 @@ def check_sharded_result(label, got, want):
     if tuple(got["ba_depth"].shape) != (SHARD_BA_WINDOW, SHARD_BA_H, SHARD_BA_W) or \
             not bool(torch.isfinite(got["ba_depth"]).all()):
         raise AssertionError(f"sharded {label}: BA depth {tuple(got['ba_depth'].shape)}")
-    return dict(track_max_dxi=dxi.max().item(), ba_max_dxi=dba, ba_costs_max_rel=dcost,
-                mapping_bitwise=True, observed=got["stats"].tolist())
+    return dict(track_max_dxi=dxi["xi"], track_rgbd_max_dxi=dxi["xi_rgbd"], ba_max_dxi=dba,
+                ba_costs_max_rel=dcost, mapping_bitwise=True, observed=got["stats"].tolist())
+
+
+def track_within(label, what, got, want):
+    """A sharded track's twist against another's within SHARD_XI_*;
+    returns max |d xi|."""
+    dxi = (got - want).abs()
+    if not bool((dxi <= SHARD_XI_ATOL + SHARD_XI_RTOL * want.abs()).all()):
+        raise AssertionError(f"{label}: {what} {got.tolist()} vs {want.tolist()}")
+    return dxi.max().item()
 
 
 def sharded_rank(folder: str, nccl: bool) -> None:
@@ -1759,7 +1796,7 @@ def sharded_kernel_checks(card_line, warm, gray, mask, K, cfg, plane_args, kerne
     from dvo_tpu_torch.models import mapper
     from dvo_tpu_torch.models.frame import build_tracking_frame
     from dvo_tpu_torch.models.tracker import level_planes, track
-    from dvo_tpu_torch.ops.cuda import _build, epipolar, gn
+    from dvo_tpu_torch.ops.cuda import epipolar
 
     frame = build_tracking_frame(gray, mask, K, cfg.pyramid.levels, 0, warm.frame_count)
     T_inv = lie.se3_exp(-track(frame, warm.ref, cfg.tracker).xi)
@@ -1767,64 +1804,16 @@ def sharded_kernel_checks(card_line, warm, gray, mask, K, cfg, plane_args, kerne
     gn_rows = {}
     for level in (len(frame.scenes) - 1, len(frame.scenes) - 2):
         ref = warm.ref.scenes[level]
-        planes = level_planes(frame.scenes[level], ref)
         h, w = ref.shape
-        args = (ref.K, T_inv, level, cfg.tracker)
-        whole = gn.gn_terms(*planes, *args)
-        for tiles in SHARD_TILES:
-            bh = h // tiles
-            sums, worst = None, 0.0
-            for t in range(tiles):
-                rows = slice(t * bh, (t + 1) * bh)
-                block = [p[rows] for p in planes[:4]] + list(planes[4:])
-                kw = dict(y_offset=t * bh, full_shape=(h, w))
-                got = gn.gn_terms(*block, *args, **kw)
-                want = gn.gn_terms_plain(*block, *args, **kw)
-                for a, b in zip(got[:3], want[:3]):
-                    worst = max(worst, (a - b).abs().max().item()
-                                / max(b.abs().max().item(), 1e-12))
-                if worst > GN_REL_TOL or abs(int(got[3]) - int(want[3])) > max(
-                        2, GN_COUNT_TOL * bh * w):
-                    raise AssertionError(f"gn block {t} of {tiles} at {h}x{w}: relative error "
-                                         f"{worst:.3g}, count {int(got[3])} vs {int(want[3])}")
-                sums = got if sums is None else [x + y for x, y in zip(sums, got)]
-            if int(sums[3]) != int(whole[3]):
-                raise AssertionError(f"gn {tiles} blocks at {h}x{w}: count {int(sums[3])} vs "
-                                     f"the whole launch's {int(whole[3])}")
-            dsum = 0.0
-            for a, b in zip(sums[:3], whole[:3]):
-                if not torch.allclose(a, b, rtol=SHARD_GN_RTOL, atol=SHARD_GN_ATOL):
-                    raise AssertionError(f"gn {tiles} blocks at {h}x{w}: sums differ from the "
-                                         f"whole launch's by {(a - b).abs().max().item():.3g}")
-                dsum = max(dsum, (a - b).abs().max().item())
-            gn_rows[f"{h}x{w} T={tiles}"] = dict(block_vs_plain_max_rel=worst,
-                                                 sums_vs_whole_max_abs=dsum,
-                                                 count=int(whole[3]))
-            phase("sharded", f"gn {tiles} row blocks of {h}x{w} (offsets "
-                             f"{[t * bh for t in range(tiles)]}): each block within {worst:.3g} "
-                             f"of its plain version, the sums within {dsum:.3g} of the whole "
-                             f"launch's, count {int(sums[3])} equal")
+        gn_rows.update(check_gn_blocks(f"{h}x{w}", level_planes(frame.scenes[level], ref), ref.K,
+                                       T_inv, level, cfg.tracker))
     # The finest level's second block of four: the row block a sharded track
-    # launches at tile 4, timed beside the whole-image launch.
+    # launches at tile 4.
     fine = len(frame.scenes) - 1
     ref = warm.ref.scenes[fine]
-    h, w = ref.shape
-    bh = h // 4
-    planes = level_planes(frame.scenes[fine], ref)
-    block = [p[bh:2 * bh] for p in planes[:4]] + list(planes[4:])
-    call = lambda fn: fn(*block, ref.K, T_inv, fine, cfg.tracker, y_offset=bh, full_shape=(h, w))
-    count = int(call(gn.gn_terms_plain)[3])
-    ops, us = device_profile(lambda: call(gn.gn_terms), 20, True)
-    nbytes, flops = gn.work((bh, w), count)
-    bound, by = _build.bound_us(nbytes, flops)
-    row = dict(shape=f"{bh}x{w}", y_offset=bh, device_us=us, device_launches=ops,
-               ms=timed(lambda: call(gn.gn_terms)), plain_ms=timed(lambda: call(gn.gn_terms_plain)),
-               bytes=nbytes, flops=flops, bound_us=bound, bound_by=by, checks=gn_rows)
-    entries["gn"]["row_block"] = row
-    phase("sharded", f"gn row block {bh}x{w} at row {bh}: device {us:.2f} us in {ops:g} "
-                     f"launches (the whole {h}x{w} launch: {entries['gn']['device_us']:.2f} us), "
-                     f"call {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-                     f"{bound:.3f} us ({by}) on {card_line}")
+    row = time_gn_block(card_line, level_planes(frame.scenes[fine], ref), ref.K, T_inv, fine,
+                        cfg.tracker, 4)
+    entries["gn"]["row_block"] = dict(row, checks=gn_rows)
 
     # --- the fused epipolar entry on row blocks of the analytic rig ---
     obj, obj_xi, rel_xi, depth, sigma, age, hist, reset, cfg_m = plane_args
@@ -1880,54 +1869,363 @@ def sharded_kernel_checks(card_line, warm, gray, mask, K, cfg, plane_args, kerne
     return dict(gn=gn_rows, epipolar=epi_rows, epipolar_bit_identical=identical)
 
 
+def check_gn_blocks(label, planes, K, T_inv, level, cfg, per_part=False):
+    """``csrc/gn.cu`` on SHARD_TILES row blocks of one level (``planes``,
+    whole): each block against its plain version (check_gn's tolerance),
+    the blocks' sums against the whole-image launch (SHARD_GN_*, the count
+    exact), and a second launch on the same inputs equal bit for bit, for
+    the whole image and for every block.  With ``per_part`` the sums'
+    SHARD_GN_RTOL is taken of each part's (H, g, the residual sum) largest
+    entry rather than of each entry: at 212x256 an entry of H is a sum of
+    ~5e4 terms that nearly cancel, and the blocks' float32 sums, added in
+    another order, differ by more than 1e-5 of such an entry (by 8 on a
+    4-block split, measured).  Returns a row per tile count."""
+    from dvo_tpu_torch.ops.cuda import gn
+
+    h, w = planes[2].shape
+    args = (K, T_inv, level, cfg)
+    whole = gn.gn_terms(*planes, *args)
+    if not all(torch.equal(a, b) for a, b in zip(whole, gn.gn_terms(*planes, *args))):
+        raise AssertionError(f"gn {label}: two launches on the same inputs differ")
+    out = {}
+    for tiles in SHARD_TILES:
+        bh = h // tiles
+        sums, worst = None, 0.0
+        for t in range(tiles):
+            rows = slice(t * bh, (t + 1) * bh)
+            block = [p[rows] for p in planes[:4]] + list(planes[4:])
+            kw = dict(y_offset=t * bh, full_shape=(h, w))
+            got = gn.gn_terms(*block, *args, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, gn.gn_terms(*block, *args, **kw))):
+                raise AssertionError(f"gn {label} block {t} of {tiles}: two launches differ")
+            want = gn.gn_terms_plain(*block, *args, **kw)
+            for a, b in zip(got[:3], want[:3]):
+                worst = max(worst, (a - b).abs().max().item()
+                            / max(b.abs().max().item(), 1e-12))
+            if worst > GN_REL_TOL or abs(int(got[3]) - int(want[3])) > max(
+                    2, GN_COUNT_TOL * bh * w):
+                raise AssertionError(f"gn block {t} of {tiles} at {label}: relative error "
+                                     f"{worst:.3g}, count {int(got[3])} vs {int(want[3])}")
+            sums = got if sums is None else [x + y for x, y in zip(sums, got)]
+        if int(sums[3]) != int(whole[3]):
+            raise AssertionError(f"gn {tiles} blocks at {label}: count {int(sums[3])} vs "
+                                 f"the whole launch's {int(whole[3])}")
+        dsum, by_part = 0.0, {}
+        for part, a, b in zip(("H", "g", "residual_sum"), sums[:3], whole[:3]):
+            scale = b.abs().max() if per_part else b.abs()
+            if not bool(((a - b).abs() <= SHARD_GN_ATOL + SHARD_GN_RTOL * scale).all()):
+                raise AssertionError(f"gn {tiles} blocks at {label}: sums differ from the "
+                                     f"whole launch's by {(a - b).abs().max().item():.3g}")
+            dsum = max(dsum, (a - b).abs().max().item())
+            by_part[part] = dict(max_abs_diff=(a - b).abs().max().item(),
+                                 max_abs_entry=b.abs().max().item())
+        out[f"{label} T={tiles}"] = dict(block_vs_plain_max_rel=worst,
+                                         sums_vs_whole_max_abs=dsum, count=int(whole[3]),
+                                         sums_vs_whole_by_part=by_part,
+                                         limit_per_part=per_part, repeats_bitwise=True)
+        parts = ", ".join(f"{k} {v['max_abs_diff']:.4g} of max |entry| {v['max_abs_entry']:.4g}"
+                          for k, v in by_part.items())
+        phase("sharded", f"gn {tiles} row blocks of {label} (offsets "
+                         f"{[t * bh for t in range(tiles)]}): each block within {worst:.3g} of "
+                         f"its plain version and equal bitwise to a second launch, the sums "
+                         f"within {dsum:.3g} of the whole launch's ({parts}; limit "
+                         f"{'per part' if per_part else 'per entry'}), count {int(sums[3])} "
+                         f"equal")
+    return out
+
+
+def time_gn_block(card_line, planes, K, T_inv, level, cfg, tiles):
+    """Block 1 of ``tiles`` of one level (the row block a rank launches
+    at that tile count): one ``gn.cu`` launch (``terms_launcher``) and the
+    ``gn_terms`` call (the launch, H's mirror and the count's cast) under
+    the profiler and CUDA events, the plain version, the bound from
+    ``work()`` and the launch floor.  Returns the row."""
+    from dvo_tpu_torch.ops.cuda import _build, gn
+    from dvo_tpu_torch.tools import framebuild_floor
+
+    h, w = planes[2].shape
+    bh = h // tiles
+    block = tuple(p[bh:2 * bh] for p in planes[:4]) + tuple(planes[4:])
+    kw = dict(y_offset=bh, full_shape=(h, w))
+    launch = gn.terms_launcher(block, K, level, cfg, **kw)
+    sums = torch.empty(gn.N_SUMS, device=K.device)
+    call = lambda: gn.gn_terms(*block, K, T_inv, level, cfg, **kw)
+    plain = lambda: gn.gn_terms_plain(*block, K, T_inv, level, cfg, **kw)
+    count = int(plain()[3])
+    ops, us = device_profile(lambda: launch(T_inv, sums), 20, True)
+    call_ops, call_us = device_profile(call, 20, True)
+    nbytes, flops = gn.work((bh, w), count)
+    bound, by = _build.bound_us(nbytes, flops)
+    fl = framebuild_floor.floor_us(nbytes, device_profile)
+    row = dict(shape=f"{bh}x{w}", y_offset=bh, blocks=gn.num_blocks(bh * w), count=count,
+               device_us=us, device_ops=ops, gn_terms_device_us=call_us,
+               gn_terms_device_ops=call_ops, ms=timed(lambda: launch(T_inv, sums)),
+               gn_terms_ms=timed(call), plain_ms=timed(plain), bytes=nbytes, flops=flops,
+               bound_us=bound, bound_by=by, launch_floor_us=fl["empty_us"],
+               copy_floor_us=fl["copy_us"])
+    phase("sharded", f"gn.cu on the {bh}x{w} row block at row {bh} ({row['blocks']} thread "
+                     f"blocks): device {us:.2f} us in {ops:g} op (gn_terms: {call_us:.2f} us in "
+                     f"{call_ops:g} ops), call {row['ms']:.4f} ms, gn_terms {row['gn_terms_ms']:.4f}"
+                     f" ms, plain {row['plain_ms']:.4f} ms; bound {bound:.3f} us ({by}), launch "
+                     f"floor {fl['empty_us']:.2f} us on {card_line}")
+    return row
+
+
+def check_gn_step(card_line, planes, K, level, cfg):
+    """``csrc/gn.cu``'s step kernel against ``step_plain`` (``gn_step_plain``
+    on the same buffers) on the card, from the sums of one ``gn.cu`` launch
+    at a small twist: the seed (the level's first state from xi0); step 0
+    from it; step 1 from the state step 0 left;
+    the same step with the state's done flag set (xi kept bit for bit, the
+    statistics recorded and equal bitwise to the unfrozen step's); step 1 on
+    zero sums (no valid pixel) and on sums whose H is -I (no Cholesky
+    factor).  xi within GN_LEVEL_XI_TOL, statistics within
+    GN_LEVEL_STAT_TOL of the plain maximum, counts and done flags equal.
+    Returns the kernel's entry for the result line."""
+    from dvo_tpu_torch import lie
+    from dvo_tpu_torch.ops.cuda import gn, gn_level
+    from dvo_tpu_torch.tools import framebuild_floor
+
+    dev, n = K.device, cfg.max_iterations
+    xi0 = torch.tensor([0.003, -0.001, 0.002, 0.0005, -0.001, 0.0], device=dev)
+    sums = torch.empty(gn.N_SUMS, device=dev)
+    gn.terms_launcher(planes, K, level, cfg)(lie.se3_exp(-xi0), sums)
+    eye = torch.eye(6, device=dev)
+    zeros = torch.zeros(gn.N_SUMS, device=dev)
+    not_pd = gn.pack_sums(-eye, torch.ones(6, device=dev), torch.tensor(2.0, device=dev),
+                          torch.tensor(5, dtype=torch.int32, device=dev))
+
+    def run(route, step_sums, it, state0):
+        state = state0.clone()
+        stats = torch.zeros(2 * n, device=dev)
+        counts = torch.zeros(n, dtype=torch.int32, device=dev)
+        if route == "kernel":
+            gn_level.step_launcher(step_sums, xi0, state, stats[:n], stats[n:], counts, cfg)(it)
+        else:
+            gn_level.step_plain(step_sums, xi0, state, stats[:n], stats[n:], counts, it, cfg)
+        return state, stats[[it, n + it]], counts[it]
+
+    blank = torch.full((gn_level.STATE,), float("nan"), device=dev)
+    seeded = run("kernel", sums, gn_level.SEED, blank)[0]
+    after0 = run("kernel", sums, 0, seeded)[0]
+    after0[18] = 0.0            # step 1 not frozen, whether or not step 0 converged
+    frozen_in = after0.clone()
+    frozen_in[18] = 1.0
+    cases = dict(seed=(sums, gn_level.SEED, blank), step0=(sums, 0, seeded),
+                 step1=(sums, 1, after0), frozen=(sums, 1, frozen_in),
+                 zero_count=(zeros, 1, after0), not_pd=(not_pd, 1, after0))
+    got_by, max_dxi, max_rel = {}, 0.0, 0.0
+    for name, (step_sums, it, state0) in cases.items():
+        got = run("kernel", step_sums, it, state0)
+        want = run("plain", step_sums, it, state0)
+        torch.cuda.synchronize()
+        got_by[name] = got
+        dxi = (got[0][:18] - want[0][:18]).abs().max().item()   # T_inv rows and xi
+        fin = torch.isfinite(want[1])
+        rel = ((got[1] - want[1]).abs()[fin].max()
+               / want[1].abs()[fin].max().clamp(min=1e-12)).item() if bool(fin.any()) else 0.0
+        nan_same = torch.equal(torch.isnan(got[1]), torch.isnan(want[1]))
+        if not (dxi <= GN_LEVEL_XI_TOL and rel <= GN_LEVEL_STAT_TOL and nan_same
+                and int(got[2]) == int(want[2]) and got[0][18].item() == want[0][18].item()):
+            raise AssertionError(f"gn_step {name}: |d state| {dxi:.3g}, statistics "
+                                 f"{got[1].tolist()}"
+                                 f" vs {want[1].tolist()}, count {int(got[2])} vs "
+                                 f"{int(want[2])}, done {got[0][18].item()} vs "
+                                 f"{want[0][18].item()}")
+        max_dxi, max_rel = max(max_dxi, dxi), max(max_rel, rel)
+    frozen, step1 = got_by["frozen"], got_by["step1"]
+    if not (torch.equal(frozen[0][12:18], frozen_in[12:18]) and frozen[0][18].item() == 1.0
+            and torch.equal(frozen[1], step1[1]) and int(frozen[2]) == int(step1[2]) > 0):
+        raise AssertionError(f"gn_step: the frozen step moved xi or masked its statistics: "
+                             f"{frozen} vs {step1}")
+    zc, npd = got_by["zero_count"], got_by["not_pd"]
+    if not (zc[1][0].item() == -1.0 and zc[1][1].item() == 0.0 and int(zc[2]) == 0
+            and zc[0][18].item() == 1.0 and bool(torch.isnan(npd[1][1]))
+            and torch.equal(npd[0][12:18], after0[12:18]) and npd[0][18].item() == 0.0):
+        raise AssertionError(f"gn_step: zero count {zc}, no factor {npd}")
+
+    state = after0.clone()
+    stats = torch.zeros(2 * n, device=dev)
+    counts = torch.zeros(n, dtype=torch.int32, device=dev)
+    step = gn_level.step_launcher(sums, xi0, state, stats[:n], stats[n:], counts, cfg)
+    ops, us = device_profile(lambda: step(1), 20, True)
+    ms = timed(lambda: step(1))
+    plain_ms = timed(lambda: gn_level.step_plain(sums, xi0, state, stats[:n], stats[n:], counts,
+                                                 1, cfg))
+    nbytes, flops = gn_level.step_work()
+    floor = framebuild_floor.floor_us(nbytes, device_profile)["empty_us"]
+    phase("sharded", f"gn_step kernel vs step_plain: seed, step 0, step 1, frozen (xi kept "
+                     f"bitwise, statistics recorded), zero count, no Cholesky factor: |d T_inv, "
+                     f"xi| <= "
+                     f"{max_dxi:.3g}, statistics within {max_rel:.3g}; device {us:.2f} us in "
+                     f"{ops:g} op (launch floor {floor:.2f} us), call {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms on {card_line}")
+    return with_bound(dict(
+        name="gn_step", route="cuda", source="dvo_tpu_torch/csrc/gn.cu",
+        replaces="dvo_tpu/ops/pallas/gn.py:45 (with the sharded scan body around it, "
+                 "dvo_tpu/parallel/tracking.py:83-95)",
+        no_library_call="a 6x6 Cholesky solve, an SE(3) exp/log composition and the scan's "
+                        "freeze on 29 sums",
+        max_abs_err=max_dxi, max_rel_err=max_rel, ms=ms, plain_ms=plain_ms, device_us=us,
+        device_launches=ops, cases=list(cases)), nbytes, flops)
+
+
+def eager_sharded_track_level(obj, ref, xi0, level_index, cfg, mesh, axis="tile"):
+    """The eager yardstick of a sharded level (the loop before the step
+    kernel): per step ``gn.gn_terms`` on the rank's block, its 44 sums
+    all-reduced, then ``gn_iteration``'s solve and compose and the scan's
+    freeze in PyTorch ops, ~250 ops a step.  Same contract as
+    ``parallel.tracking.sharded_track_level``."""
+    from dvo_tpu_torch.models.tracker import level_planes
+    from dvo_tpu_torch.ops.cuda.gn_level import gn_iteration
+    from dvo_tpu_torch.parallel import tracking
+
+    planes = level_planes(obj, ref)
+    terms = tracking._sharded_terms(mesh, axis)
+    xi = xi0
+    done = torch.zeros((), dtype=torch.bool, device=xi0.device)
+    res, upd, cnt = [], [], []
+    for _ in range(cfg.max_iterations):
+        new_xi, mean_res, u, count, converged = gn_iteration(planes, ref.K, xi, level_index, cfg,
+                                                            terms)
+        xi = torch.where(done, xi, new_xi)
+        done = done | converged
+        res.append(mean_res)
+        upd.append(u)
+        cnt.append(count)
+    return xi, (torch.stack(res), torch.stack(upd), torch.stack(cnt))
+
+
+def sharded_launches_expected(frame, tiles, cfg):
+    """The launches of a sharded track of ``frame`` at ``tiles`` row
+    blocks: ``gn`` once per step of every sharded level, ``gn_step`` once
+    per step and once per sharded level (the seed of its state),
+    ``gn_level`` once per other level."""
+    sharded = sum(1 for sc in frame.scenes if sc.shape[0] % tiles == 0
+                  and sc.shape[0] >= 4 * tiles)
+    steps = sharded * cfg.max_iterations
+    return dict(gn=steps, gn_step=steps + sharded, gn_level=len(frame.scenes) - sharded)
+
+
+def require_track_launches(label, launches, inp, tiles):
+    for part, frame, cfg in (("tracking", inp["ref"], inp["cfg_t"]),
+                             ("tracking_rgbd", inp["ref_r"], inp["cfg_tr"])):
+        want = sharded_launches_expected(frame, tiles, cfg)
+        got = {k: launches[part][k] for k in want}
+        if got != want:
+            raise AssertionError(f"sharded {label}: {part} launched {got}, expected {want}")
+
+
 def sharded_phase(dev, card_line):
-    """The sharded solvers' step (after ``sharded_kernel_checks``, the
-    kernels on row blocks): (2) on a one-rank NCCL group, each
-    part equal bitwise to the single-device port — tracking to the stepwise
-    track (the same ``gn.cu`` launches, one all-reduce each), mapping to
+    """The sharded solvers.  (1) Without collectives: ``gn.cu`` on row
+    blocks of the 120x160 level and the RGB-D 212x256 level
+    (``check_gn_blocks``), timed at the 30x160 block (tile 4 of 120) and the
+    106x256 block (tile 2 of 212) (``time_gn_block``), and the step kernel
+    against its plain version (``check_gn_step``).  (2) On a one-rank NCCL
+    group: the step, each part against the single-device port — both tracks
+    within SHARD_XI_* of ``track`` (the level kernel) and of the stepwise
+    track, and equal bitwise over two calls; mapping equal bitwise to
     ``depth_update``, BA to ``bundle_adjust`` — with no host sync in the
-    tracking loop; (3) the step in SHARD_RANKS processes on this card in a
-    gloo group on the (kf 2, tile 2) mesh, held against the single-device
-    port; (4) with four cards, the same on NCCL through ``torchrun``.
-    Returns the phase's summary and the step's launches by path: (2)'s and
-    (3)'s rank 0's, each summed over the step's parts."""
+    tracking loop, ``gn`` and ``gn_step`` once per step, the device ops of
+    a GN step counted; then the tracking part on the eager loop (the plain
+    yardstick ``eager_sharded_track_level``) and on
+    the card's route in turns (SHARD_TURNS).  (3) The step in SHARD_RANKS
+    processes on this card in a gloo group on the (kf 2, tile 2) mesh, held
+    against the single-device port; (4) with four cards, the same on NCCL
+    through ``torchrun``.  Returns the phase's summary, the step's launches
+    by path ((2)'s and (3)'s rank 0's, each summed over the step's parts)
+    and the kernel rows ({"gn": the timed blocks, "gn_step": its entry})."""
     import torch.distributed as dist
 
-    from dvo_tpu_torch.models.tracker import track
-    from dvo_tpu_torch.parallel import make_mesh, sharded_track
+    from dvo_tpu_torch import lie
+    from dvo_tpu_torch.models.tracker import level_planes, track
+    from dvo_tpu_torch.parallel import make_mesh, sharded_track, sharded_track_level
+    from dvo_tpu_torch.parallel import tracking
 
     summary = {}
-    # (2) one rank, NCCL
     inp = sharded_inputs(dev)
+    # (1) the kernels on row blocks, at the poses the single-card track finds
+    checks, timed_blocks = {}, {}
+    for obj, ref, cfg, tiles in ((inp["obj"], inp["ref"], inp["cfg_t"], 4),
+                                 (inp["obj_r"], inp["ref_r"], inp["cfg_tr"], 2)):
+        fine = len(ref.scenes) - 1
+        T_inv = lie.se3_exp(-track(obj, ref, cfg).xi)
+        planes = level_planes(obj.scenes[fine], ref.scenes[fine])
+        h, w = ref.scenes[fine].shape
+        checks.update(check_gn_blocks(f"{h}x{w}", planes, ref.scenes[fine].K, T_inv, fine, cfg,
+                                      per_part=h * w > SHARD_H * SHARD_W))
+        row = time_gn_block(card_line, planes, ref.scenes[fine].K, T_inv, fine, cfg, tiles)
+        timed_blocks[row["shape"]] = row
+    fine = SHARD_LEVELS - 1
+    step_entry = check_gn_step(card_line, level_planes(inp["obj"].scenes[fine],
+                                                       inp["ref"].scenes[fine]),
+                               inp["ref"].scenes[fine].K, fine, inp["cfg_t"])
+    summary["gn_blocks"] = checks
+
+    # (2) one rank, NCCL
     mesh = make_mesh((1, 1), ("kf", "tile"))   # a one-rank NCCL group of its own
+    track_call = lambda: sharded_track(inp["obj"], inp["ref"], inp["cfg_t"], mesh)
     try:
         backend = dist.get_backend()
-        sharded_step(mesh, inp)
+        first, _, _ = sharded_step(mesh, inp)
         out, ms, launches = sharded_step(mesh, inp)
-        syncs = count_syncs(lambda: sharded_track(inp["obj"], inp["ref"], inp["cfg_t"], mesh))
+        syncs = count_syncs(track_call)
+        xi_zero = torch.zeros(6, device=dev)
+        level_call = lambda: sharded_track_level(inp["obj"].scenes[fine], inp["ref"].scenes[fine],
+                                                 xi_zero, fine, inp["cfg_t"], mesh)
+        ops, busy_us = device_profile(level_call, 3, True)
+        turns = {"eager": [], "card": []}
+        for route in SHARD_TURNS:
+            with (patched(tracking, "sharded_track_level", eager_sharded_track_level)
+                  if route == "eager" else contextlib.nullcontext()):
+                xi_t, secs, turn_launches = run_path(f"sharded_tracking_{route}", track_call)
+            turns[route].append(1e3 * secs)
+            track_within("sharded (one rank)", f"the {route} route's track", xi_t, out["xi"])
+            if route == "eager" and (turn_launches["gn"] != launches["tracking"]["gn"]
+                                     or turn_launches["gn_step"]):
+                raise AssertionError(f"sharded: the eager loop launched {turn_launches}")
     finally:
         dist.destroy_process_group()
-    if launches["tracking"]["gn"] == 0 or launches["mapping"]["epipolar"] == 0:
-        raise AssertionError(f"sharded (one rank): gn or epipolar never launched: {launches}")
+    steps_per_level = inp["cfg_t"].max_iterations
+    ops_per_step = ops / steps_per_level   # the level's seed launch included
+    require_track_launches("(one rank)", launches, inp, 1)
+    if launches["mapping"]["epipolar"] == 0:
+        raise AssertionError(f"sharded (one rank): epipolar never launched: {launches}")
     want, single_ms = sharded_references(inp, out)
     with stepwise_tracker():
         stepwise = track(inp["obj"], inp["ref"], inp["cfg_t"]).xi
-    if not torch.equal(out["xi"], stepwise):
-        raise AssertionError("sharded (one rank): track differs from the stepwise track")
+        stepwise_r = track(inp["obj_r"], inp["ref_r"], inp["cfg_tr"]).xi
+    dxi = dict(level_kernel=track_within("sharded (one rank)", "track", out["xi"], want["xi"]),
+               stepwise=track_within("sharded (one rank)", "track vs stepwise", out["xi"],
+                                     stepwise),
+               rgbd_level_kernel=track_within("sharded (one rank)", "RGB-D track", out["xi_rgbd"],
+                                              want["xi_rgbd"]),
+               rgbd_stepwise=track_within("sharded (one rank)", "RGB-D track vs stepwise",
+                                          out["xi_rgbd"], stepwise_r))
+    repeats = torch.equal(first["xi"], out["xi"]) and torch.equal(first["xi_rgbd"],
+                                                                  out["xi_rgbd"])
     bitwise = {k: torch.equal(out[k], want[k]) for k in (
         "depth", "sigma", "age", "stats", "ba_xi", "ba_depth", "ba_costs", "ba_counts")}
-    if not all(bitwise.values()) or syncs:
+    if not all(bitwise.values()) or syncs or not repeats or ops_per_step > 3:
         raise AssertionError(f"sharded (one rank): bitwise {bitwise}, {syncs} host syncs in "
-                             "the tracking loop")
+                             f"the tracking loop, tracks repeat bitwise: {repeats}, "
+                             f"{ops_per_step:g} device ops a GN step")
     summary["one_rank"] = dict(backend=backend, ms=ms, launches=launches, syncs_tracking=syncs,
-                               track_vs_level_kernel=(out["xi"] - want["xi"]).abs().max().item())
+                               track_max_dxi=dxi, tracks_repeat_bitwise=repeats,
+                               device_ops_per_gn_step=ops_per_step, device_ops_per_level=ops,
+                               device_busy_us_per_gn_step=busy_us / steps_per_level,
+                               tracking_ms_in_turns=turns)
     summary["single_device_ms"] = single_ms
-    phase("sharded", f"one-rank {backend} group: sharded_track equal bitwise to the stepwise "
-                     f"track ({launches['tracking']['gn']} gn launches, {syncs} host syncs; "
-                     f"{summary['one_rank']['track_vs_level_kernel']:.3g} from the level "
-                     f"kernel's), sharded_depth_update to depth_update and "
-                     f"bundle_adjust_sharded to bundle_adjust; ms {ms}, the single-device "
-                     f"port's (track on the level kernel) {single_ms} on {card_line}")
+    phase("sharded", f"one-rank {backend} group: sharded_track within {dxi['level_kernel']:.3g} "
+                     f"of track (the level kernel) and {dxi['stepwise']:.3g} of the stepwise "
+                     f"track, the RGB-D track within {dxi['rgbd_level_kernel']:.3g} and "
+                     f"{dxi['rgbd_stepwise']:.3g}; both repeat bitwise; launches tracking "
+                     f"{launches['tracking']}, tracking_rgbd {launches['tracking_rgbd']}; "
+                     f"{syncs} host syncs; {ops_per_step:g} device ops and "
+                     f"{busy_us / steps_per_level:.2f} device-busy us a GN step; "
+                     f"sharded_depth_update equal to depth_update and bundle_adjust_sharded to "
+                     f"bundle_adjust; ms {ms}, the single-device port's {single_ms}; tracking "
+                     f"ms in turns (eager loop, card route): {turns} on {card_line}")
 
     # (3) four processes on this card, gloo; (4) four cards, NCCL
     runs = {"gloo": False} if torch.cuda.device_count() < SHARD_RANKS else {"gloo": False,
@@ -1940,12 +2238,15 @@ def sharded_phase(dev, card_line):
         summary[name] = dict(ranks=SHARD_RANKS, mesh=SHARD_MESH, backend=got["backend"],
                              devices=[r["device"] for r in ranks], ms=[r["ms"] for r in ranks],
                              launches=per_rank, **diffs)
-        if any(r["tracking"]["gn"] == 0 or r["mapping"]["epipolar"] == 0 for r in per_rank):
-            raise AssertionError(f"sharded {name}: gn or epipolar never launched: {per_rank}")
+        for r in per_rank:
+            require_track_launches(name, r, inp, SHARD_MESH[1])
+            if r["mapping"]["epipolar"] == 0:
+                raise AssertionError(f"sharded {name}: epipolar never launched: {per_rank}")
         phase("sharded", f"{SHARD_RANKS} ranks, {got['backend']} on "
                          f"{sorted(set(r['device'] for r in ranks))}, mesh (kf, tile) "
                          f"{SHARD_MESH}: every rank equal; track within "
-                         f"{diffs['track_max_dxi']:.3g} of the level kernel's, mapping bitwise "
+                         f"{diffs['track_max_dxi']:.3g} of the level kernel's, RGB-D track "
+                         f"{diffs['track_rgbd_max_dxi']:.3g}, mapping bitwise "
                          f"(observed {diffs['observed'][0]}), BA xi within "
                          f"{diffs['ba_max_dxi']:.3g}, costs {diffs['ba_costs_max_rel']:.3g}; ms "
                          f"per part {[r['ms'] for r in ranks]}; launches of rank 0 "
@@ -1954,7 +2255,8 @@ def sharded_phase(dev, card_line):
         phase("sharded", f"four cards on NCCL: not measured ({torch.cuda.device_count()} card)")
     step = lambda parts: {k: sum(p[k] for p in parts.values()) for k in parts["tracking"]}
     return summary, {"sharded": step(launches),
-                     "sharded_gloo_rank0": step(summary["gloo"]["launches"][0])}
+                     "sharded_gloo_rank0": step(summary["gloo"]["launches"][0])}, dict(
+        gn=timed_blocks, gn_step=step_entry)
 
 
 def write_png(path, img) -> None:
@@ -2293,7 +2595,7 @@ RGBD_KERNELS = ("gn_level", "framebuild")
 def require_launched(path, launches, names, levels_per_frame=None, mono=None):
     """Every kernel in ``names`` launched on the path; with
     ``levels_per_frame`` = (levels, frames), the level kernel exactly once
-    per level and frame, and the stepwise kernel not at all; with ``mono`` =
+    per level and frame, and the stepwise kernels not at all; with ``mono`` =
     (route, frames, keyframes, first-frame builds), the mapper's launches of
     a monocular run on that route ("fused" or "fields"), exactly."""
     for name in names:
@@ -2301,9 +2603,9 @@ def require_launched(path, launches, names, levels_per_frame=None, mono=None):
             raise AssertionError(f"kernel {name} never launched on the {path} path")
     if levels_per_frame is not None:
         levels, frames = levels_per_frame
-        if launches["gn_level"] != levels * frames or launches["gn"] != 0:
+        if launches["gn_level"] != levels * frames or launches["gn"] or launches["gn_step"]:
             raise AssertionError(f"{path}: expected {levels} gn_level launches per frame over "
-                                 f"{frames} frames and no gn launch: {launches}")
+                                 f"{frames} frames and no gn or gn_step launch: {launches}")
     if mono is not None:
         # Both mapping branches are enqueued on every frame (the keyframe
         # decision is selected on the device): the depth update launches on
@@ -3176,12 +3478,15 @@ def main() -> None:
     parallel = parallel_phase(dev, card_line, cfg, cfg_r, streams.pop("inputs"),
                               (r_grays, r_masks, r_counts, r_K))
     # 8e. the sharded solvers' step (dvo_tpu_torch.parallel.{tracking,mapping,ba})
-    sharded, sharded_launches = sharded_phase(dev, card_line)
+    sharded, sharded_launches, sharded_kernels = sharded_phase(dev, card_line)
     sharded["kernels"] = sharded_rows
     by_path.update(sharded_launches)
-    entries["gn"]["launches_per_sharded_track"] = {
-        "one_rank": sharded["one_rank"]["launches"]["tracking"]["gn"],
-        "gloo_rank0": sharded["gloo"]["launches"][0]["tracking"]["gn"]}
+    entries["gn"]["sharded_row_blocks"] = sharded_kernels["gn"]
+    kernels.append(sharded_kernels["gn_step"])
+    for name in ("gn", "gn_step"):
+        next(k for k in kernels if k["name"] == name)["launches_per_sharded_track"] = {
+            "one_rank": sharded["one_rank"]["launches"]["tracking"][name],
+            "gloo_rank0": sharded["gloo"]["launches"][0]["tracking"][name]}
 
     # 9. the CLI, python -m dvo_tpu_torch.run, on PNG sequences
     cli = cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_path,

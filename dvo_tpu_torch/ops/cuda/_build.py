@@ -36,8 +36,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=fa
 
 # Kernel launches since the last ``reset_launches``: each wrapper adds one
 # where it launches its kernel, and nowhere else.
-LAUNCHES = {"gn": 0, "gn_level": 0, "epipolar": 0, "regularize": 0, "framebuild": 0,
-            "regularize_cull": 0}
+LAUNCHES = {"gn": 0, "gn_step": 0, "gn_level": 0, "epipolar": 0, "regularize": 0,
+            "framebuild": 0, "regularize_cull": 0}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
 # float32 outside the tensor cores.  A kernel's bound is taken against them.
@@ -52,7 +52,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "dvo_gn_num_blocks": ([_I], _I),
-    "dvo_gn_terms": ([_P] * 11 + [_I] * 5 + [_F] * 4 + [_I] * 6 + [_P], _I),
+    "dvo_gn_terms": ([_P] * 14 + [_I] * 5 + [_F] * 4 + [_I] * 6 + [_P], _I),
+    "dvo_gn_step": ([_P] * 6 + [_I] + [_F] * 3 + [_P], _I),
     "dvo_gn_level": ([_P] * 17 + [_I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,
                                   _I, _F, _F, _F, _P], _I),
     "dvo_regularize": ([_P] * 3 + [_I, _I, _F, _F, _P], _I),

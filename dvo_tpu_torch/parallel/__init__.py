@@ -3,8 +3,10 @@ streams on ``torch.distributed`` — ``dvo_tpu.parallel`` ported.
 
   * ``tracking`` — tile-sharded GN (``sharded_gn_normal_equations``,
     ``sharded_track_level``, ``sharded_track``): image rows over the
-    ``tile`` axis, one ``csrc/gn.cu`` launch per rank and GN step on its row
-    block, the 44 sums all-reduced;
+    ``tile`` axis; on the card three device ops per rank and GN step: a
+    ``csrc/gn.cu`` launch on its row block that reduces the block's 29 sums,
+    their in-place all-reduce, and ``gn.cu``'s step kernel (solve and pose
+    update);
   * ``mapping`` — the tile-sharded epipolar depth update
     (``sharded_depth_update``): one launch of the fused ``csrc/epipolar.cu``
     entry per rank on its row block, the maps all-gathered;

@@ -130,6 +130,20 @@ def all_reduce_sum(tensors: list, group) -> list:
     return out
 
 
+def all_reduce_(t, group):
+    """``t`` summed over the group's ranks in place, and returned: one
+    ``all_reduce`` of ``t`` itself where it lies on ``wire(group)`` (no
+    copy); otherwise (gloo, ``t`` on the card) through the host and back."""
+    on = wire(group)
+    if t.device.type == on:
+        dist.all_reduce(t, group=group)
+    else:
+        host = t.to(on)
+        dist.all_reduce(host, group=group)
+        t.copy_(host)
+    return t
+
+
 def all_gather_rows(local: list, group) -> list:
     """Each tensor of ``local`` concatenated over the group's ranks along
     its leading axis, in rank order: one ``all_gather`` per dtype on

@@ -7,17 +7,19 @@ shard over the ``tile`` mesh axis.  Every rank holds the whole frames (as
 planes and the reference depth and sigma of rows [r * bh, (r + 1) * bh),
 against the whole reference gray, mask and gradients (warped points cross
 block boundaries, and at VO resolutions a whole image is a few hundred KB).
-The block goes through ``ops.cuda.gn.gn_terms`` with its row offset — one
-``csrc/gn.cu`` launch on the card — and the 44 sums (H 36, g 6, the
-residual sum and the count) are summed over the axis by one ``all_reduce``
-per GN step.  The solve, the pose update and the convergence test then run
-replicated on every rank, on the device: nothing is read back to the host
-inside the loop on an NCCL group.  On a gloo group the 44 sums travel
-through the host.
 
-A sharded level cannot use the one-launch level kernel (``gn_level.cu``):
-every step needs the reduction over ranks.  It is the fixed-length masked
-loop of ``dvo_tpu``'s scan, ``max_iterations`` steps with a ``done`` mask.
+A sharded level is ``dvo_tpu``'s scan: ``max_iterations`` steps, a ``done``
+flag freezing xi after convergence, every step's statistics recorded.  It
+cannot use the one-launch level kernel (``gn_level.cu``): every step needs
+the reduction over ranks.  A step is three ops and no host read: one
+``csrc/gn.cu`` launch that linearises the rank's block and reduces its 29
+sums (H's lower triangle, g, the residual sum, the count) on the card, one
+in-place ``all_reduce`` of those 29 floats, and one launch of ``gn.cu``'s
+step kernel, which solves, updates the pose and writes the state the next
+linearisation reads (``gn.terms_launcher``, ``gn_level.step_launcher``).
+On a gloo group the 29 sums travel through the host.  On CPU tensors the
+two launchers run their plain versions (``gn_terms_plain`` packed,
+``gn_level.step_plain``) in the same loop.
 """
 
 from __future__ import annotations
@@ -29,12 +31,17 @@ from dvo_tpu_torch.config import TrackerConfig
 from dvo_tpu_torch.models.frame import Frame, Scene
 from dvo_tpu_torch.models.tracker import level_planes, track_level
 from dvo_tpu_torch.ops.cuda import gn
-from dvo_tpu_torch.ops.cuda.gn_level import gn_iteration
-from dvo_tpu_torch.parallel.mesh import all_reduce_sum, axis_group, tile_rows
+from dvo_tpu_torch.ops.cuda.gn_level import SEED, STATE, step_launcher
+from dvo_tpu_torch.parallel.mesh import all_reduce_, all_reduce_sum, axis_group, tile_rows
 
-# The count travels as a float32 beside the 43 float sums: exact for any
-# image of fewer than 2**24 pixels.
+# The count travels as a float32 beside the float sums: exact for any image
+# of fewer than 2**24 pixels.
 MAX_PIXELS = 1 << 24
+
+
+def _check_pixels(h: int, w: int) -> None:
+    if h * w >= MAX_PIXELS:
+        raise ValueError(f"a {h}x{w} image: the count is summed in float32")
 
 
 def _sharded_terms(mesh, axis):
@@ -45,8 +52,7 @@ def _sharded_terms(mesh, axis):
     def terms(obj_gray, obj_mask, ref_depth, ref_sigma, ref_gray, ref_mask, ref_gx, ref_gy,
               ref_gmask, K, T_inv, level_index, cfg):
         h, w = ref_depth.shape
-        if h * w >= MAX_PIXELS:
-            raise ValueError(f"a {h}x{w} image: the count is summed in float32")
+        _check_pixels(h, w)
         y0, bh, group = tile_rows(mesh, axis, h)
         rows = slice(y0, y0 + bh)
         Hm, g, rsum, count = gn.gn_terms(
@@ -72,23 +78,32 @@ def sharded_gn_normal_equations(obj: Scene, ref: Scene, xi, level_index: int,
 def sharded_track_level(obj: Scene, ref: Scene, xi0, level_index: int, cfg: TrackerConfig,
                         mesh, axis: str = "tile"):
     """``max_iterations`` GN steps at one level, each linearisation sharded
-    (``sharded_gn_normal_equations``), a ``done`` mask freezing xi after
-    convergence, as ``dvo_tpu``'s scan.  Returns (xi, (mean residuals,
-    update norms, counts)), one entry per step."""
-    terms = _sharded_terms(mesh, axis)
+    over ``axis``, a ``done`` flag freezing xi after convergence, as
+    ``dvo_tpu``'s scan.  Returns (xi, (mean residuals, update norms,
+    counts)), one entry per step, recorded after convergence too.  The
+    buffers are allocated once; the step kernel seeds the state from xi0;
+    then a step is the linearisation of the rank's block, the 29 sums
+    all-reduced in place, the step kernel.  Nothing is read back to the
+    host."""
     planes = level_planes(obj, ref)
-    xi = xi0
-    done = torch.zeros((), dtype=torch.bool, device=xi0.device)
-    res, upd, cnt = [], [], []
-    for _ in range(cfg.max_iterations):
-        new_xi, mean_res, u, count, converged = gn_iteration(planes, ref.K, xi, level_index,
-                                                            cfg, terms)
-        xi = torch.where(done, xi, new_xi)
-        done = done | converged
-        res.append(mean_res)
-        upd.append(u)
-        cnt.append(count)
-    return xi, (torch.stack(res), torch.stack(upd), torch.stack(cnt))
+    h, w = planes[2].shape
+    _check_pixels(h, w)
+    y0, bh, group = tile_rows(mesh, axis, h)
+    rows = slice(y0, y0 + bh)
+    terms = gn.terms_launcher((*(p[rows] for p in planes[:4]), *planes[4:]), ref.K,
+                              level_index, cfg, y_offset=y0, full_shape=(h, w))
+    dev, f32, n = xi0.device, torch.float32, cfg.max_iterations
+    sums = torch.empty(gn.N_SUMS, dtype=f32, device=dev)
+    state = torch.empty(STATE, dtype=f32, device=dev)
+    stats = torch.empty(2 * n, dtype=f32, device=dev)
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    step = step_launcher(sums, xi0, state, stats[:n], stats[n:], counts, cfg)
+    step(SEED)
+    for it in range(n):
+        terms(state, sums)
+        all_reduce_(sums, group)
+        step(it)
+    return state[12:18], (stats[:n], stats[n:], counts)
 
 
 def sharded_track(obj_frame: Frame, ref_frame: Frame, cfg: TrackerConfig, mesh,

@@ -13,11 +13,28 @@
   ``dvo_tpu``'s.  Tolerances: the solve within 1e-4 relative (LAPACK
   against a hand-written factorisation, as ``test_gn_solve_matches``), the
   composed twist within 2e-6 (float32 trigonometry in another order).
+* The same transcription extended to ``csrc/gn.cu``'s step kernel
+  (``step_kernel_scalar``: the freeze of ``dvo_tpu``'s scan, statistics
+  recorded after convergence, a zero count, a non-positive-definite H)
+  against ``gn_level.step_plain`` (``gn_step_plain`` on the kernel's
+  buffers) and against the body of ``dvo_tpu.parallel.tracking``'s scan on
+  the same sums, over a few steps: twists within 5e-6 (the composed twist's
+  2e-6 a step), statistics within 1e-4 relative (the solve's tolerance),
+  counts, flags and the frozen steps exact.
+* The 29-sum pack of ``gn_terms_plain`` (``gn.pack_sums`` /
+  ``gn.unpack_sums``), mirrored back exactly.
+* ``EmulatedGNLibrary``: ``csrc/gn.cu``'s C entries behind their ctypes
+  arguments (the linearisation through ``gn_terms_plain`` on the arrays
+  behind its pointers, the step through ``step_kernel_scalar``), which
+  drives the sharded tracker's CUDA route on the CPU (here on one rank;
+  on four gloo ranks in ``test_torch_sharded.py``).
 * The ``work()`` byte and operation counts of all five kernels at 120x160
   and the bound they give.
 """
 
+import ctypes
 import dataclasses
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,8 +44,10 @@ import torch
 from dvo_tpu import lie as jlie
 from dvo_tpu.config import TrackerConfig
 from dvo_tpu.models import tracker as jtracker
+from dvo_tpu.parallel import tracking as jtracking
 from dvo_tpu_torch import lie as tlie
 from dvo_tpu_torch.config import MapperConfig, config_from_reference
+from dvo_tpu_torch.config import TrackerConfig as TTrackerConfig
 from dvo_tpu_torch.models import tracker as ttracker
 from dvo_tpu_torch.ops.cuda import _build, epipolar, framebuild, gn, gn_level, regularize
 
@@ -308,11 +327,286 @@ def test_epilogue_count_zero_gives_zero_update(rng):
                                  cfg.damping).any()
 
 
+# ------------------- gn.cu's step kernel: the sharded scan's step, transcribed
+
+def _mirror(acc):
+    """H (6x6 nested list) from the lower triangle of the 29 sums."""
+    return [[acc[max(i, j) * (max(i, j) + 1) // 2 + min(i, j)] for j in range(6)]
+            for i in range(6)]
+
+
+def write_state_scalar(xi):
+    """gn_step.cuh write_state without the flag: T_inv = se3_exp(-xi) rows
+    0-2 (12 floats), then xi."""
+    R, t = se3_exp_scalar([f32(-v) for v in xi])
+    rows = [v.item() for i in range(3) for v in (*R[i], t[i])]
+    return rows + [f32(v).item() for v in xi]
+
+
+def step_kernel_scalar(sums, xi0, state, it, cfg):
+    """gn.cu gn_step_kernel: at it = -1 the level's first state from xi0
+    (no statistics: None); else gn_step (above) from the 29 sums at the
+    state's xi, then dvo_tpu's scan: a done state freezes xi, the
+    statistics are recorded either way.  Returns (the next state, 19
+    floats; (mean residual, update norm, count))."""
+    if it == gn_level.SEED:
+        return write_state_scalar(xi0) + [0.0], None
+    acc = [f32(v).item() for v in sums]
+    done = state[18] != 0.0
+    xi = [f32(v).item() for v in state[12:18]]
+    new_xi, mean_res, upd, converged, _ = gn_step_scalar(_mirror(acc), acc[21:27], acc[27],
+                                                         int(acc[28]), xi, cfg)
+    out = xi if done else new_xi
+    return write_state_scalar(out) + [1.0 if done or converged else 0.0], (mean_res, upd,
+                                                                          int(acc[28]))
+
+
+STEPS = 3
+STEP_XI0 = [0.01, -0.02, 0.03, 0.002, -0.001, 0.003]
+STEP_CASES = {
+    # name: (H scale (None: -I), count, config); the same sums every step
+    "moving": (50.0, 900, dict(min_update_norm=0.0, min_residual=0.0)),     # never converges
+    "freeze": (50.0, 900, dict(min_update_norm=1e9)),    # converges at step 0, then frozen
+    "zero_count": (10.0, 0, {}),                         # zero update, converged at once
+    "not_pd": (None, 5, dict(min_residual=0.0)),          # NaN update, xi kept, never converges
+}
+
+
+def _step_sums(rng, case):
+    h_scale, count, kw = STEP_CASES[case]
+    H, g = _normal_equations(rng, 1.0 if h_scale is None else h_scale)
+    if h_scale is None:
+        H = -np.eye(6, dtype=np.float32)
+    g = (g * np.float32(0.5)).astype(np.float32)
+    rsum = np.float32(2.0 if count else 0.0)
+    sums = gn.pack_sums(torch.tensor(H), torch.tensor(g), torch.tensor(rsum),
+                        torch.tensor(count, dtype=torch.int32))
+    return H, g, rsum, count, sums, TrackerConfig(max_iterations=STEPS, **kw)
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_step_kernel_transcription_matches_the_plain_step_and_dvo_tpu_scan(rng, case,
+                                                                           monkeypatch):
+    """``STEPS`` steps on the same sums: the transcription against
+    ``step_plain`` (the port's PyTorch ops on the kernel's buffers) and
+    against ``dvo_tpu``'s sharded scan body (its linearisation replaced by
+    these sums)."""
+    H, g, rsum, count, sums, jcfg = _step_sums(rng, case)
+    cfg = config_from_reference(jcfg)
+    state, _ = step_kernel_scalar(sums.tolist(), STEP_XI0, [float("nan")] * 19, gn_level.SEED,
+                                  cfg)
+    stats, states = [], []
+    for it in range(STEPS):
+        state, st = step_kernel_scalar(sums.tolist(), STEP_XI0, state, it, cfg)
+        states.append(state)
+        stats.append(st)
+    res, upd, cnt = (np.asarray(v) for v in zip(*stats))
+
+    xi0 = torch.tensor(STEP_XI0)
+    t_state = torch.full((19,), float("nan"))
+    t_res, t_upd = torch.zeros(STEPS), torch.zeros(STEPS)
+    t_cnt = torch.zeros(STEPS, dtype=torch.int32)
+    for it in range(gn_level.SEED, STEPS):
+        gn_level.step_plain(sums, xi0, t_state, t_res, t_upd, t_cnt, it, cfg)
+
+    monkeypatch.setattr(jtracking, "sharded_gn_normal_equations", lambda *a, **k: (
+        jnp.asarray(H), jnp.asarray(g), jnp.asarray(rsum), jnp.asarray(count, jnp.int32)))
+    jxi, (jres, jupd, jcnt) = jtracking.sharded_track_level(
+        None, None, jnp.asarray(STEP_XI0, jnp.float32), 0, jcfg, None)
+
+    xi = np.asarray(state[12:18], np.float32)
+    for other_xi, other in ((t_state[12:18].numpy(), (t_res, t_upd, t_cnt)),
+                            (np.asarray(jxi), (jres, jupd, jcnt))):
+        np.testing.assert_allclose(xi, other_xi, rtol=0, atol=5e-6)
+        np.testing.assert_array_equal(res.astype(np.float32), np.asarray(other[0]))
+        np.testing.assert_allclose(upd, np.asarray(other[1]), rtol=1e-4, atol=1e-9)
+        np.testing.assert_array_equal(cnt, np.asarray(other[2]))
+    assert state[18] == t_state[18].item()
+    np.testing.assert_allclose(np.asarray(state[:12], np.float32), t_state[:12].numpy(), rtol=0,
+                               atol=5e-6)
+    # every step's statistics are recorded; a frozen step keeps xi bit for bit
+    converged_at = {"moving": None, "freeze": 0, "zero_count": 0, "not_pd": None}[case]
+    for it in range(1, STEPS):
+        assert stats[it][0] == stats[0][0] and stats[it][2] == count
+        if converged_at is not None and it > converged_at:
+            assert states[it][12:18] == states[it - 1][12:18]
+            assert states[it][:12] == states[it - 1][:12]
+    assert (state[18] == 1.0) == (converged_at is not None)
+    if case == "moving":
+        assert np.abs(xi - np.float32(STEP_XI0)).max() > 1e-3
+    if case == "not_pd":
+        assert np.isnan(upd).all() and xi.tolist() == np.float32(STEP_XI0).tolist()
+    if case == "zero_count":
+        assert (res == -1.0).all() and (upd == 0.0).all()
+
+
+@pytest.mark.parametrize("weight_b_only", [False, True])
+@pytest.mark.parametrize("level", [0, 2])      # 2: the crop level
+def test_pack_sums_mirrors_back_exactly(rng, weight_b_only, level):
+    """``gn_terms_plain``'s (H, g, residual sum, count) packed into the 29
+    sums and unpacked: H on and below the diagonal, g, the residual sum and
+    the count exactly; above the diagonal H's lower triangle, which the
+    plain H has there up to float noise (each product and the einsum's sum
+    in another order: within 1e-5 of H's largest entry)."""
+    obj, ref = _frames(rng, 60, 80, 1, np.array([0.004, 0, 0.002, 0, 0.001, 0], np.float32))
+    to, tr = _port(obj).scenes[0], _port(ref).scenes[0]
+    cfg = config_from_reference(TrackerConfig(compat_weight_b_only=weight_b_only))
+    terms = gn.gn_terms_plain(*ttracker.level_planes(to, tr), tr.K, torch.eye(4), level, cfg)
+    sums = gn.pack_sums(*terms)
+    assert sums.shape == (gn.N_SUMS,) and sums.dtype == torch.float32
+    H, g, rsum, count = gn.unpack_sums(sums)
+    lower = torch.tril(torch.ones(6, 6, dtype=torch.bool))
+    assert torch.equal(H[lower], terms[0][lower]) and torch.equal(H, H.T)
+    assert torch.equal(g, terms[1]) and torch.equal(rsum, terms[2])
+    assert count.dtype == torch.int32 and int(count) == int(terms[3]) > 500
+    torch.testing.assert_close(terms[0], terms[0].T, rtol=0,
+                               atol=1e-5 * terms[0].abs().max().item())
+
+
+def _arr(ptr, shape, ctype=ctypes.c_float):
+    n = int(np.prod(shape))
+    return np.ctypeslib.as_array((ctype * n).from_address(ptr)).reshape(shape)
+
+
+class EmulatedGNLibrary:
+    """``csrc/gn.cu``'s C entries behind their ctypes arguments, in order:
+    ``dvo_gn_terms`` runs ``gn_terms_plain`` on the arrays behind its
+    pointers at the pose the kernel reads (T_inv's rows 0-2) and packs the
+    29 sums, after writing every partials slot, leaving the ticket at 0;
+    ``dvo_gn_step`` runs ``step_kernel_scalar``; ``dvo_gn_level``
+    (``csrc/gn_level.cu``, for the levels a sharded track leaves whole) runs
+    ``gn_level_plain``."""
+
+    def dvo_gn_num_blocks(self, n):
+        return gn.num_blocks(n)
+
+    def dvo_gn_terms(self, obj_gray, obj_mask, ref_depth, ref_sigma, ref_gray, ref_mask, ref_gx,
+                     ref_gy, ref_gmask, K, T_inv, sums, partials, ticket, h, w,
+                     y_offset, full_h, full_w, step, min_depth, sigma_lo, sigma_hi,
+                     weight_b_only, crop, crop_x0, crop_x1, crop_y0, crop_y1, stream):
+        u8 = ctypes.c_uint8
+        assert _arr(ticket, (1,), ctypes.c_uint32)[0] == 0 and 0 <= y_offset <= full_h - h
+        # the launch's scratch, overwritten as the kernel does: a buffer that
+        # shares its memory with the partials is caught here
+        _arr(partials, (gn.num_blocks(h * w), gn.N_SUMS))[:] = np.nan
+        t = lambda ptr, shape, ct=ctypes.c_float: torch.from_numpy(_arr(ptr, shape, ct))
+        block = (t(obj_gray, (h, w)), t(obj_mask, (h, w), u8).bool(), t(ref_depth, (h, w)),
+                 t(ref_sigma, (h, w)))
+        f = (full_h, full_w)
+        whole = (t(ref_gray, f), t(ref_mask, f, u8).bool(), t(ref_gx, f), t(ref_gy, f),
+                 t(ref_gmask, f, u8).bool())
+        rows = _arr(T_inv, (12,)).tolist()
+        T = torch.tensor(rows + [0.0, 0.0, 0.0, 1.0], dtype=torch.float32).reshape(4, 4)
+        cfg = TTrackerConfig(level_steps=(step,), min_depth=min_depth,
+                             sigma_clamp=(sigma_lo, sigma_hi),
+                             compat_weight_b_only=bool(weight_b_only),
+                             crop_level=0 if crop else -1, crop_x=(crop_x0, crop_x1),
+                             crop_y=(crop_y0, crop_y1))
+        terms = gn.gn_terms_plain(*block, *whole, t(K, (3, 3)), T, 0, cfg, y_offset, f)
+        _arr(sums, (gn.N_SUMS,))[:] = gn.pack_sums(*terms).numpy()
+        return 0
+
+    def dvo_gn_level(self, *args):
+        """The level kernel's contract through ``gn_level_plain`` (a sharded
+        track runs a level the tile count does not divide on it)."""
+        (*planes, K, xi0, xi, residuals, update_norms, valid_counts, iterations, _stamps, h, w,
+         step, min_depth, sigma_lo, sigma_hi, weight_b_only, crop, crop_x0, crop_x1, crop_y0,
+         crop_y1, n, damping, min_update_norm, min_residual, _stream) = args
+        t = lambda ptr, shape, ct=ctypes.c_float: torch.from_numpy(_arr(ptr, shape, ct))
+        kinds = (None, "mask", None, None, None, "mask", None, None, "mask")
+        planes = tuple(t(p, (h, w), ctypes.c_uint8).bool() if k else t(p, (h, w))
+                       for p, k in zip(planes, kinds))
+        cfg = TTrackerConfig(level_steps=(step,), min_depth=min_depth,
+                             sigma_clamp=(sigma_lo, sigma_hi),
+                             compat_weight_b_only=bool(weight_b_only),
+                             crop_level=0 if crop else -1, crop_x=(crop_x0, crop_x1),
+                             crop_y=(crop_y0, crop_y1), max_iterations=n, damping=damping,
+                             min_update_norm=min_update_norm, min_residual=min_residual)
+        out = gn_level.gn_level_plain(planes, t(K, (3, 3)), t(xi0, (6,)).clone(), 0, cfg)
+        for ptr, v, ct in zip((xi, residuals, update_norms, valid_counts, iterations), out,
+                              (ctypes.c_float,) * 3 + (ctypes.c_int32,) * 2):
+            _arr(ptr, tuple(v.shape) or (1,), ct)[:] = v.reshape(-1).numpy()
+        return 0
+
+    def dvo_gn_step(self, sums, xi0, state, residuals, update_norms, valid_counts, it, damping,
+                    min_update_norm, min_residual, stream):
+        cfg = SimpleNamespace(damping=damping, min_update_norm=min_update_norm,
+                              min_residual=min_residual)
+        st = _arr(state, (19,))
+        new, stats = step_kernel_scalar(_arr(sums, (gn.N_SUMS,)).tolist(),
+                                        _arr(xi0, (6,)).tolist(), st.tolist(), it, cfg)
+        st[:] = new
+        if stats is None:       # the seed
+            return 0
+        mean_res, upd, count = stats
+        _arr(residuals, (it + 1,))[it] = mean_res
+        _arr(update_norms, (it + 1,))[it] = upd
+        _arr(valid_counts, (it + 1,), ctypes.c_int32)[it] = count
+        return 0
+
+
+def emulate_cuda_route(monkeypatch):
+    """The sharded tracker takes its CUDA route on CPU tensors, through
+    ``EmulatedGNLibrary``."""
+    for mod in (gn, gn_level):
+        monkeypatch.setattr(mod, "resolve_device", lambda _: "cuda")
+    monkeypatch.setattr(_build, "library", EmulatedGNLibrary)
+    monkeypatch.setattr(_build, "stream_handle", lambda _: 0)
+
+
+def test_sharded_level_cuda_route_on_one_rank_matches_the_plain_route(rng, monkeypatch):
+    """``sharded_track_level``'s CUDA route (a one-rank gloo group, the
+    emulated library): ``max_iterations`` launches of ``gn``, one more of
+    ``gn_step`` (the seed), every statistics slot filled, and the plain
+    route's xi and statistics within 1e-6, the counts equal.
+    Then ``sharded_track`` over two levels likewise."""
+    import torch.distributed as dist
+
+    from dvo_tpu_torch.parallel import make_mesh, sharded_track, sharded_track_level
+
+    obj, ref = _frames(rng, 48, 64, 2, np.array([0.01, -0.004, 0.006, 0.002, -0.002, 0.003],
+                                                np.float32))
+    to, tr = _port(obj), _port(ref)
+    cfg = config_from_reference(TrackerConfig(max_iterations=6, min_residual=0.0))
+    xi0 = torch.zeros(6)
+    assert not dist.is_initialized()
+    mesh = make_mesh((1,), ("tile",), device="cpu")
+    try:
+        want = sharded_track_level(to.scenes[1], tr.scenes[1], xi0, 1, cfg, mesh)
+        want_track = sharded_track(to, tr, cfg, mesh)
+        with monkeypatch.context() as m:
+            emulate_cuda_route(m)
+            _build.reset_launches()
+            got = sharded_track_level(to.scenes[1], tr.scenes[1], xi0, 1, cfg, mesh)
+            launches = dict(_build.LAUNCHES)
+            got_track = sharded_track(to, tr, cfg, mesh)
+            track_launches = dict(_build.LAUNCHES)
+            _build.reset_launches()
+    finally:
+        dist.destroy_process_group()
+    n = cfg.max_iterations
+    assert launches["gn"] == launches["gn_step"] - 1 == n and launches["gn_level"] == 0
+    assert track_launches["gn"] == track_launches["gn_step"] - 3 == 3 * n
+    xi, (res, upd, cnt) = got
+    assert res.shape == upd.shape == cnt.shape == (n,) and cnt.dtype == torch.int32
+    assert bool(torch.isfinite(res).all() and (res > 0).all() and (cnt > 500).all())
+    torch.testing.assert_close(xi, want[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(res, want[1][0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(upd, want[1][1], rtol=0, atol=1e-6)
+    assert torch.equal(cnt, want[1][2])
+    assert float(upd[-1]) < float(upd[0])          # the level moved and settled
+    torch.testing.assert_close(got_track, want_track, rtol=0, atol=1e-6)
+
+
 # ------------------------------------------------------ work() and the bound
 
 @pytest.mark.parametrize("name,got,want", [
-    ("gn", lambda: gn.work((120, 160)), (518656, 4012800)),
-    ("gn_valid", lambda: gn.work((120, 160), 8431), (518656, 2645137)),
+    # 27 B a pixel, T_inv's rows and K, the 29 sums
+    ("gn", lambda: gn.work((120, 160)), (518400 + 64 + 116, 3436800)),
+    ("gn_valid", lambda: gn.work((120, 160), 8431), (518580, 1574400 + 97 * 8431)),
+    ("gn_block", lambda: gn.work((30, 160), 2000), (129600 + 180, 82 * 4800 + 97 * 2000)),
+    # the 29 sums, the state's xi and done read; the state and 3 statistics written
+    ("gn_step", gn_level.step_work, ((29 + 7 + 19 + 3) * 4, 850)),
     ("gn_level", lambda: gn_level.work((120, 160), [8431], 15), (518668, 2392907)),
     ("gn_level_3_steps", lambda: gn_level.work((120, 160), [8431, 8400, 8000], 15),
      (518668, 3 * (1574400 + 700) + 97 * (8431 + 8400 + 8000))),
@@ -331,7 +625,7 @@ def test_work_counts_at_the_main_path_shapes(name, got, want):
 
 def test_bound_takes_the_larger_of_bytes_and_operations():
     us, by = _build.bound_us(*gn.work((120, 160)))
-    assert by == "bytes" and us == pytest.approx(1e6 * 518656 / 3.35e12)
+    assert by == "bytes" and us == pytest.approx(1e6 * 518580 / 3.35e12)
     us, by = _build.bound_us(*gn_level.work((120, 160), [19200] * 5, 15))
     assert by == "operations" and us == pytest.approx(1e6 * 5 * (179 * 19200 + 700) / 67e12)
     assert _build.bound_us(0, 0) == (0.0, "bytes")

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from dvo_tpu_torch import lie
 from dvo_tpu_torch.config import MapperConfig, TrackerConfig, resolve_device
 from dvo_tpu_torch.models import frame, mapper
 from dvo_tpu_torch.ops.cuda import _build, epipolar, framebuild, gn, gn_level, regularize
@@ -85,8 +86,8 @@ def test_build_command_targets_sm90a_in_ignored_dir(monkeypatch):
     assert {Path(c).name for cmd in cmds for c in cmd if c.endswith(".cu")} == {
         "gn.cu", "gn_level.cu", "epipolar.cu", "regularize.cu", "framebuild.cu", "floor.cu"}
     assert {p.name for p in _build._headers()} == {
-        "dvo_kernels.h", "gn_pixel.cuh", "epipolar_pixel.cuh", "regularize_pixel.cuh",
-        "framebuild_cull.cuh"}
+        "dvo_kernels.h", "gn_pixel.cuh", "gn_step.cuh", "epipolar_pixel.cuh",
+        "regularize_pixel.cuh", "framebuild_cull.cuh"}
     assert all(cmd[cmd.index("-I") + 1] == str(_build.SOURCE_DIR) for cmd in cmds)
     ignored = (REPO / ".gitignore").read_text().split()
     assert _build.BUILD_DIR.relative_to(REPO).as_posix() + "/" in ignored
@@ -114,6 +115,7 @@ def test_library_name_tracks_sources(tmp_path, monkeypatch):
 @pytest.mark.parametrize("entry,pointers,ints,floats", [
     ("dvo_epipolar", 9, 5, 10), ("dvo_epipolar_fused", 17, 10, 11),
     ("dvo_regularize_cull", 3, 4, 2), ("dvo_regularize", 3, 2, 2), ("dvo_framebuild", 9, 5, 0),
+    ("dvo_gn_step", 6, 1, 3),
 ])
 def test_entry_signatures(entry, pointers, ints, floats):
     """The ctypes signature of each entry: its pointers, then its ints, then
@@ -160,6 +162,51 @@ def _gn_inputs(rng, h=12, w=16):
 def _gn_level_inputs(rng, h=12, w=16):
     *planes, K, _, level, cfg = _gn_inputs(rng, h, w)
     return tuple(planes), K, torch.tensor([0.01, 0.0, 0.0, 0.0, 0.002, 0.0]), level, cfg
+
+
+def _gn_launch(launcher):
+    """The 29 sums of a linearisation at a 4x4 T_inv and at the state a
+    step left, through ``terms_launcher``'s launch (``launcher``) or the
+    plain version packed."""
+    def run(*args):
+        *planes, K, _, level, cfg = args
+        xi = torch.tensor([0.01, 0.0, 0.0, 0.0, 0.002, 0.0])
+        T = lie.se3_exp(-xi)
+        state = torch.cat([torch.eye(4)[:3].reshape(12), xi, torch.zeros(1)])
+        if launcher:
+            launch = gn.terms_launcher(tuple(planes), K, level, cfg)
+            return [launch(T, torch.empty(gn.N_SUMS)), launch(state, torch.empty(gn.N_SUMS))]
+        return [gn.pack_sums(*gn.gn_terms_plain(*planes, K, T_inv, level, cfg))
+                for T_inv in (T, torch.eye(4))]
+    return run
+
+
+def _gn_steps(launcher):
+    """The seed and three steps of a level from fixed sums, through
+    ``step_launcher``'s step (``launcher``) or ``step_plain``: the state and
+    the statistics."""
+    def run(sums, xi0, cfg):
+        state = torch.zeros(gn_level.STATE)
+        stats = torch.zeros(2 * cfg.max_iterations)
+        counts = torch.zeros(cfg.max_iterations, dtype=torch.int32)
+        outs = (state, xi0, stats[:cfg.max_iterations], stats[cfg.max_iterations:], counts)
+        step = gn_level.step_launcher(sums, xi0, state, *outs[2:], cfg)
+        for it in range(gn_level.SEED, 3):
+            if launcher:
+                step(it)
+            else:
+                gn_level.step_plain(sums, xi0, state, *outs[2:], it, cfg)
+        return [state, stats, counts]
+    return run
+
+
+def _step_inputs(rng):
+    A = torch.from_numpy(rng.standard_normal((6, 6)).astype(np.float32))
+    sums = gn.pack_sums(A @ A.T + torch.eye(6), torch.from_numpy(
+        rng.standard_normal(6).astype(np.float32)) * 0.1, torch.tensor(3.0),
+        torch.tensor(400, dtype=torch.int32))
+    return sums, torch.tensor([0.01, 0.0, -0.02, 0.001, 0.0, 0.002]), TrackerConfig(
+        max_iterations=4)
 
 
 def _epi_inputs(rng, h=10, w=12, c=2):
@@ -231,6 +278,8 @@ def _flat(out):
 @pytest.mark.parametrize("name,wrapper,plain,make", [
     ("gn", gn.gn_terms, gn.gn_terms_plain, _gn_inputs),
     ("gn_level", gn_level.gn_level, gn_level.gn_level_plain, _gn_level_inputs),
+    ("gn_terms_launcher", _gn_launch(True), _gn_launch(False), _gn_inputs),
+    ("gn_step", _gn_steps(True), _gn_steps(False), _step_inputs),
     ("epipolar", epipolar.epipolar_update, epipolar.epipolar_update_plain, _epi_inputs),
     ("regularize", regularize.regularize, regularize.regularize_plain, _reg_inputs),
     ("framebuild", framebuild.build_pyramid_planes, framebuild.build_pyramid_planes_plain,
@@ -257,8 +306,8 @@ def test_cpu_tensors_take_the_plain_path(name, wrapper, plain, make, rng, monkey
     assert len(got) == len(want) > 0
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert _build.LAUNCHES == {"gn": 0, "gn_level": 0, "epipolar": 0, "regularize": 0,
-                               "framebuild": 0, "regularize_cull": 0}
+    assert _build.LAUNCHES == {"gn": 0, "gn_step": 0, "gn_level": 0, "epipolar": 0,
+                               "regularize": 0, "framebuild": 0, "regularize_cull": 0}
 
 
 @pytest.mark.parametrize("bad,match", [

@@ -4,6 +4,8 @@ mesh, mirroring ``tests/test_parallel.py`` and ``tests/test_ba.py``'s
 sharded tests; and the row offset of the kernels' plain versions and of the
 epipolar kernel's NumPy transcription.
 
+The tracker's CUDA route runs there too, on CPU tensors through the
+emulated ``csrc/gn.cu`` of ``test_torch_gn_level.py``.
 Each sharded module runs in its own gloo group of four processes (each
 joined with a timeout, so a hang fails instead of eating the suite's
 limit), on a 4-tile mesh and on the (kf 2, tile 2) mesh of
@@ -86,6 +88,14 @@ for name, case in cases.items():
                                                  level, cfg, meshes[tiles])
         out[name] = np.concatenate([H.reshape(-1).numpy(), g.numpy(), r[None].numpy()])
         out[name + "_count"] = np.asarray(int(c))
+    elif part == "tracking" and name.startswith("emu"):
+        import pytest
+        sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+        from test_torch_gn_level import emulate_cuda_route
+        obj, ref, cfg = case
+        with pytest.MonkeyPatch.context() as m:
+            emulate_cuda_route(m)
+            out[name] = sharded_track(obj, ref, cfg, meshes[4]).numpy()
     elif part == "tracking":
         obj, ref, cfg = case
         out[name] = sharded_track(obj, ref, cfg, meshes[4]).numpy()
@@ -175,6 +185,7 @@ def tracking(tmp_path_factory):
         cases[name] = (_port(o), _port(r), config_from_reference(cfg))
         mesh = j_make_mesh((4,), ("tile",))
         jax_out[name] = jax.jit(lambda a, b: j_sharded_track(a, b, cfg, mesh))(o, r)
+        cases["emu_" + name] = cases[name]   # the CUDA route, through the emulated library
     ranks = _four_ranks(tmp_path_factory.mktemp("tracking"), "tracking", cases)
     return dict(got=ranks[0], cases=cases, jax=jax_out, truth=truth)
 
@@ -204,6 +215,19 @@ def test_sharded_track_matches(tracking, name):
     np.testing.assert_allclose(got, np.asarray(tracking["jax"][name]), rtol=1e-4, atol=2e-5)
     np.testing.assert_allclose(got, ttracker.track(obj, ref, cfg).xi.numpy(), rtol=1e-4,
                                atol=2e-5)
+    np.testing.assert_allclose(got, tracking["truth"][name], atol=1e-3)
+
+
+@pytest.mark.parametrize("name", list(TRACK_CASES))
+def test_sharded_track_cuda_route_matches(tracking, name):
+    """The CUDA route on the four ranks (``gn.cu``'s C entries through
+    ``test_torch_gn_level.EmulatedGNLibrary``: 29 sums, the in-place
+    all-reduce, the step kernel's transcription) against ``dvo_tpu``'s
+    sharded track at the tolerances above, and within 1e-6 of the plain
+    route's on the same ranks."""
+    got = tracking["got"]["emu_" + name]
+    np.testing.assert_allclose(got, np.asarray(tracking["jax"][name]), rtol=1e-4, atol=2e-5)
+    np.testing.assert_allclose(got, tracking["got"][name], rtol=0, atol=1e-6)
     np.testing.assert_allclose(got, tracking["truth"][name], atol=1e-3)
 
 
