@@ -10,7 +10,9 @@ Phases, one line each (or a few):
   2. build    — compile ``dvo_tpu_torch/csrc/*.cu`` with nvcc (first use).
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 on inputs from a real run at the paths' shapes: the GN step
-                (``gn``) and the GN level loop (``gn_level``: xi, statistics,
+                (``gn``) and the GN level loop (``gn_level``: its launch
+                shape from the kernel's C entries against
+                ``gn_level.launch_shape``; xi, statistics,
                 equal ``iterations`` and counts, the same bits on a second
                 run, a level with no valid pixel; timed against the plain
                 loop and the stepwise loop, one ``gn`` launch per step) at
@@ -51,6 +53,9 @@ Phases, one line each (or a few):
                 untimed chunk from the same first state, replayed per frame);
                 then the eager step loop twice and the graphed run again (A,
                 B, B, A), every run's poses bitwise equal to the first's;
+                the level kernel's device us a frame by level (a
+                ``torch.profiler`` window of the graphed run), its steps a
+                frame by level and its bound on those steps;
                 every kernel of the path must have
                 launched: per frame ``gn_level`` three times, the frame build,
                 the regularize-and-cull launch and epipolar once (both mapping
@@ -71,8 +76,9 @@ Phases, one line each (or a few):
                 counts with holes) in one chunk, graphed, against the eager
                 step loop as in phase 4; every twist must recover the
                 step; ``gn_level`` (four per frame) and the frame build must
-                have launched; the first 8 frames again on the CPU must
-                agree.  Then A, B, B, A and the profiles as in phase 4.
+                have launched, the level kernel's device us and steps a frame
+                by level as in phase 4; the first 8 frames again on the CPU
+                must agree.  Then A, B, B, A and the profiles as in phase 4.
   7. monodepth — ``monocular_init_with_depth`` + ``monocular_run`` on 12
                 640x480 frames; the path's four kernels must have launched.
   8. syncs    — host syncs per frame under ``set_sync_debug_mode`` in a
@@ -375,6 +381,85 @@ def device_profile(fn, calls: int = 1, whole: bool = False):
         ops += per_call
         busy_us += per_call * statistics.mean(durations)
     return ops, busy_us
+
+
+def gn_level_per_frame(fn, frames, levels, iterations, valid_counts, shapes, max_iterations):
+    """The level kernel on a path: ``fn()`` runs ``frames`` frames whose
+    tracker makes ``levels`` ``gn_level`` launches each, coarse to fine and
+    back to back.  Under ``torch.profiler`` the device events are ordered by
+    start; a frame's launches are a run of ``levels`` consecutive
+    ``gn_level`` kernels, and a run that lost an event is left out (the
+    profiler loses a few).  ``iterations`` (frames, levels) and
+    ``valid_counts`` (frames, levels, max_iterations) are the run's
+    ``tracking`` fields, ``shapes`` the levels' (h, w).  Returns, per level:
+    the device us a frame, the steps a frame and the us a step; and the
+    bound a frame (``gn_level.work()`` on the steps that ran), the frames
+    timed and the device-busy us a frame of the whole path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dvo_tpu_torch.ops.cuda import _build, gn_level
+
+    fn()
+    runs, busy = [], 0.0
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        runs, run = [], []
+        for e in events + [None]:
+            if e is not None and "gn_level_kernel" in e.name:
+                run.append(e.time_range.elapsed_us())
+                continue
+            if run and len(run) % levels == 0:
+                runs += [run[i:i + levels] for i in range(0, len(run), levels)]
+            run = []
+        busy = sum(e.time_range.elapsed_us() for e in events) / frames
+        if len(runs) >= frames - frames // 20:
+            break
+    if not runs:
+        raise AssertionError(f"torch.profiler showed no whole frame of {levels} gn_level "
+                             f"launches in {PROFILE_TRIES} windows")
+    us = [statistics.mean(r[lv] for r in runs) for lv in range(levels)]
+    steps = iterations.double().mean(0).tolist()
+    bound = 0.0
+    for f in range(iterations.shape[0]):
+        for lv in range(levels):
+            n = int(iterations[f, lv])
+            bound += _build.bound_us(*gn_level.work(shapes[lv], valid_counts[f, lv, :n].tolist(),
+                                                    max_iterations))[0]
+    return dict(device_us_by_level=us, steps_by_level=steps,
+                us_per_step_by_level=[u / max(s, 1e-9) for u, s in zip(us, steps)],
+                device_us_per_frame=sum(us), steps_per_frame=sum(steps),
+                bound_us_per_frame=bound / iterations.shape[0], frames_timed=len(runs),
+                shapes=["x".join(map(str, sh)) for sh in shapes],
+                device_busy_us_per_frame=busy)
+
+
+def level_shapes(h, w, levels):
+    """The (h, w) of each pyramid level of an (h, w) base, coarse to fine."""
+    return [((h + (1 << k) - 1) >> k, (w + (1 << k) - 1) >> k) for k in range(levels - 1, -1, -1)]
+
+
+def gn_level_on_path(name, fn, outs, base, levels, max_iterations):
+    """``gn_level_per_frame`` on a graphed path's run ``fn`` whose chunk
+    results are ``outs``; prints the phase's line.  ``base`` is the (h, w)
+    the tracker's finest level has."""
+    its = torch.cat([r.tracking.iterations for r in outs]).cpu()
+    counts = torch.cat([r.tracking.valid_counts for r in outs]).cpu()
+    out = gn_level_per_frame(fn, its.shape[0], levels, its, counts, level_shapes(*base, levels),
+                             max_iterations)
+    phase(name, "gn_level per frame by level (" + ", ".join(out["shapes"]) + "): device us "
+          + ", ".join(f"{u:.2f}" for u in out["device_us_by_level"]) + "; steps "
+          + ", ".join(f"{v:.2f}" for v in out["steps_by_level"]) + "; us a step "
+          + ", ".join(f"{v:.2f}" for v in out["us_per_step_by_level"])
+          + f"; {out['device_us_per_frame']:.2f} us in {out['steps_per_frame']:.2f} steps a "
+            f"frame, bound {out['bound_us_per_frame']:.3f} us, of {out['device_busy_us_per_frame']:.1f} "
+            f"device-busy us a frame ({out['frames_timed']} frames timed)")
+    return out
 
 
 def with_bound(entry, nbytes, flops):
@@ -691,17 +776,25 @@ def stepwise_tracker():
 def check_gn_level(obj_scenes, ref_scenes, cfg, times, tag=""):
     """The level kernel vs ``gn_level_plain`` at every level, coarse to fine,
     each level starting from the plain loop's xi of the level before (as
-    ``track`` chains them).  Fills times[tag + shape] = (kernel, plain loop,
-    stepwise loop) ms, work[tag + shape] = (bytes, flops) of the call.
+    ``track`` chains them), and its launch shape from the kernel's C entries
+    against ``gn_level.launch_shape``.  Fills times[tag + shape] = (kernel,
+    plain loop, stepwise loop ms, the launch shape), work[tag + shape] =
+    (bytes, flops) of the call.
     Returns (max |d xi|, max relative statistics error, work by shape, the
     finest level's arguments)."""
     from dvo_tpu_torch.models.tracker import level_planes
-    from dvo_tpu_torch.ops.cuda import gn_level
+    from dvo_tpu_torch.ops.cuda import _build, gn_level
 
     dev = obj_scenes[0].gray.device
     xi = torch.zeros(6, dtype=torch.float32, device=dev)
     max_dxi, max_rel, work = 0.0, 0.0, {}
+    lib = _build.library()
     for level, (obj, ref) in enumerate(zip(obj_scenes, ref_scenes)):
+        h, w = obj.gray.shape
+        shape_c = (lib.dvo_gn_level_blocks(h, w), lib.dvo_gn_level_threads(h, w))
+        if shape_c != gn_level.launch_shape(h, w):
+            raise AssertionError(f"gn_level {h}x{w}: the kernel's launch shape {shape_c}, "
+                                 f"launch_shape {gn_level.launch_shape(h, w)}")
         args = (level_planes(obj, ref), ref.K, xi, level, cfg)
         got = gn_level.gn_level(*args)
         again = gn_level.gn_level(*args)
@@ -729,9 +822,10 @@ def check_gn_level(obj_scenes, ref_scenes, cfg, times, tag=""):
         ms = timed(lambda: gn_level.gn_level(*args))
         plain_ms = timed(lambda: gn_level.gn_level_plain(*args), SLOW_REPS, 1)
         step_ms = timed(lambda: stepwise_level(*args), SLOW_REPS, 1)
-        times[shape] = (ms, plain_ms, step_ms)
-        phase("kernels", f"gn_level {shape}: {iters} steps, |d xi| {dxi:.3g}, counts and "
-                         f"iterations equal, repeats bitwise, kernel {ms:.4f} ms, plain loop "
+        times[shape] = (ms, plain_ms, step_ms, shape_c)
+        phase("kernels", f"gn_level {shape}: launch shape {shape_c[0]} x {shape_c[1]} (the C "
+                         f"entries equal launch_shape), {iters} steps, |d xi| {dxi:.3g}, counts "
+                         f"and iterations equal, repeats bitwise, kernel {ms:.4f} ms, plain loop "
                          f"{plain_ms:.3f} ms, stepwise loop {step_ms:.3f} ms")
         xi, fine_args = want[0], args
 
@@ -962,7 +1056,7 @@ def kernel_phase(state, grays, masks, K, cfg, tag=""):
     lv_times = {}
     dxi, lv_rel, lv_work, level_args = check_gn_level(frame.scenes, state.ref.scenes,
                                                       cfg.tracker, lv_times, tag)
-    ms, plain_ms, step_ms = lv_times[tag + shape]
+    ms, plain_ms, step_ms = lv_times[tag + shape][:3]
     ops, us = device_profile(lambda: gn_level.gn_level(*level_args), 20, True)
     step_ops, step_us = device_profile(lambda: stepwise_level(*level_args), 2, True)
     phase("kernels", f"{tag}gn_level {shape}: device {us:.2f} us in {ops:g} launches; "
@@ -3197,7 +3291,8 @@ def main() -> None:
         return outs
 
     capture_s = []
-    first = run_path("mono", mono_primed())
+    mono_graphed = mono_primed()
+    first = run_path("mono", mono_graphed)
     outs, elapsed, launches = first
     T = torch.cat([r.T_world for r in outs])
     kf = torch.cat([r.is_keyframe for r in outs])
@@ -3216,6 +3311,9 @@ def main() -> None:
                   f"accepted per update {accepted[~kf].tolist()}, launches {launches}, "
                   f"graphed {ms_frame:.3f} ms/frame = {1e3 / ms_frame:.2f} fps (capture and its "
                   f"chunk {capture_s[0]:.3f} s) on {card_line}")
+    level_frames = {}
+    level_frames["mono"] = gn_level_on_path("main", mono_graphed, outs, (h0, w0),
+                                            cfg.pyramid.levels, cfg.tracker.max_iterations)
     drivers = dict(mono=paired_drivers("mono", mono_primed(), mono_eager, N_FRAMES,
                                        lambda o: torch.cat([r.T_world for r in o]), first))
     drivers["mono"]["capture_and_chunk_s"] = capture_s[:]
@@ -3332,7 +3430,8 @@ def main() -> None:
             st, g[i], m[i], d[i], s[i], K_c, cfg_c))[1]
 
     capture_s = []
-    first = run_path("rgbd", rgbd_primed())
+    rgbd_graphed = rgbd_primed()
+    first = run_path("rgbd", rgbd_graphed)
     res_r, elapsed, launches = first
     by_path["rgbd"] = launches
     if not bool(torch.isfinite(res_r.T_world).all()):
@@ -3352,6 +3451,9 @@ def main() -> None:
                   f"on {card_line}")
     if not step_err.max().item() <= STEP_TOL:
         raise AssertionError("rgbd: a frame-to-frame twist missed the step")
+    level_frames["rgbd"] = gn_level_on_path("rgbd", rgbd_graphed, [res_r],
+                                            (RH >> cfg_r.pyramid.culls, RW >> cfg_r.pyramid.culls),
+                                            cfg_r.pyramid.levels, cfg_r.tracker.max_iterations)
     drivers["rgbd"] = paired_drivers("rgbd", rgbd_primed(), rgbd_eager, RGBD_FRAMES,
                                      lambda o: o.T_world, first)
     drivers["rgbd"]["capture_and_chunk_s"] = capture_s[:]
@@ -3527,6 +3629,7 @@ def main() -> None:
             k["plain_ms_by_shape"] = {s: v[1] for s, v in times.items()}
             if k["name"] == "gn_level":
                 k["stepwise_ms_by_shape"] = {s: v[2] for s, v in times.items()}
+                k["launch_shape_by_shape"] = {s: v[3] for s, v in times.items()}
         if "work_by_shape" in k:
             k["bound_us_by_shape"] = {s: _build.bound_us(*w)[0]
                                       for s, w in k["work_by_shape"].items()}
@@ -3542,6 +3645,7 @@ def main() -> None:
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_frame"] = {path: by_path[path][counter] / n
                                    for path, n in frames_by_path.items() if on_path(path)}
+    next(k for k in kernels if k["name"] == "gn_level")["per_frame_by_path"] = level_frames
     print(json.dumps(plain_json({"kernels": kernels, "gn_loops": gn_loops, "mapper_routes": routes,
                       "epipolar_lanes": lanes_rows, "planes": planes, "graphs": graphs,
                       "ms_per_frame": ms_frame, "rgbd_ms_per_frame": ms_rgbd,

@@ -34,7 +34,8 @@
 //  * Each thread keeps 29 sums in registers: the lower triangle of H (21:
 //    the Cholesky factorisation reads nothing else), g (6), r^2, the count.
 //  * Deterministic reduction, no float atomics: a warp reduce-scatters
-//    its 29 sums (31 shuffles, lane l ends with sum l, `fold`), a block
+//    its 29 sums (31 shuffles, lane l ends with sum l, gn_pixel.cuh's
+//    reduce_scatter), a block
 //    adds its warps in order and writes its 29 sums to its partials slot;
 //    after a __threadfence() one thread takes an atomic ticket, and the
 //    block that takes the last one adds the slots in block order (lane l of
@@ -47,12 +48,16 @@
 //    step kernel's state, which the step kernel seeds from a level's xi0
 //    before its first step).  The intrinsics come from K.  No per-step host
 //    tensor op remains.
-//  * The step kernel is one warp whose lane 0 runs gn_step.cuh's step, then
-//    dvo_tpu's scan: xi_out = where(done, xi, new_xi), done |= converged;
-//    the step's statistics go to slot `it` whether or not the level has
+//  * The step kernel is one warp that runs gn_step.cuh's step (the solve and
+//    the compose spread over its lanes); lane 0 then applies dvo_tpu's
+//    scan: xi_out = where(done, xi, new_xi), done |= converged; the step's
+//    statistics go to slot `it` whether or not the level has
 //    converged (the scan records them all), the next state to the buffer
 //    the next linearisation reads.  At it = -1 it writes the level's first
 //    state from xi0 (write_state: T_inv rows, xi, done = 0) and nothing else.
+//    Measured on an H100 80GB HBM3 at 700 W, device us of one step in turns
+//    (tools/gn_level_stamps.py --turns): 4.20 on the warp, 4.91-5.05 with
+//    the solve and the compose in one thread; the launch floor is ~0.87.
 //  * Measured against gn_level's layout for one step (one 8-block cluster
 //    of 512 threads, the blocks' sums added through distributed shared
 //    memory), in turns on an H100 80GB HBM3 at 700 W, and dropped: device us
@@ -74,22 +79,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = dvo::kGNSums;
 constexpr int kState = dvo::kGNState;
-
-// One step of a warp's reduce-scatter over 2 O values a lane: the lane
-// keeps the half its bit O selects, adds its partner's (lane ^ O) copy of
-// that half, and sends the other.  After O = 16, 8, 4, 2, 1, lane l holds
-// the warp's sum of value l: 31 shuffles for 32 sums, where a shuffle tree
-// for each would take 160.
-template <int O>
-__device__ __forceinline__ void fold(float (&t)[32], int lane) {
-  const bool upper = (lane & O) != 0;
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-    const float send = upper ? t[i] : t[i + O];
-    const float keep = upper ? t[i + O] : t[i];
-    t[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 gn_terms_kernel(dvo::GNPlanes planes, const float* __restrict__ K,
@@ -123,11 +112,7 @@ gn_terms_kernel(dvo::GNPlanes planes, const float* __restrict__ K,
     }
   }
 
-  fold<16>(t, lane);
-  fold<8>(t, lane);
-  fold<4>(t, lane);
-  fold<2>(t, lane);
-  fold<1>(t, lane);
+  dvo::reduce_scatter(t, lane);
   if (lane < kSums) warp_sums[warp][lane] = t[0];
   __syncthreads();
   if (tid < kSums) {
@@ -173,23 +158,24 @@ gn_step_kernel(const float* __restrict__ sums, const float* __restrict__ xi0,
                float* __restrict__ state, float* __restrict__ residuals,
                float* __restrict__ update_norms, int* __restrict__ valid_counts, int it,
                float damping, float min_update_norm, float min_residual) {
-  if (threadIdx.x != 0) return;
+  const bool lead = threadIdx.x == 0;
   if (it < 0) {  // the level's first state
-    float xi[6];
+    if (lead) {
+      float xi[6];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) xi[i] = xi0[i];
-    dvo::write_state(state, xi, false);
+      for (int i = 0; i < 6; ++i) xi[i] = xi0[i];
+      dvo::write_state(state, xi, false);
+    }
     return;
   }
-  float acc[kSums];
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) acc[k] = sums[k];
   const bool done = state[18] != 0.0f;
   float xi[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) xi[i] = state[12 + i];
 
-  const dvo::GNStep st = dvo::gn_step(acc, xi, damping, min_update_norm, min_residual);
+  const dvo::GNStep st = dvo::gn_step(sums, xi, damping, min_update_norm, min_residual);
+  __syncwarp();  // every lane has read the state before lane 0 rewrites it
+  if (!lead) return;
   residuals[it] = st.mean_res;
   update_norms[it] = st.upd;
   valid_counts[it] = st.count;

@@ -1,5 +1,5 @@
 // One pyramid level of photometric Gauss-Newton tracking in ONE launch: the
-// linearisation, the 44-term reduction, the 6x6 solve, the SE(3) update and
+// linearisation, the 29-term reduction, the 6x6 solve, the SE(3) update and
 // the convergence test of every iteration run on the device, and the loop
 // ends there when the level has converged.
 //
@@ -10,47 +10,58 @@
 // launch, 15 iterations per level, whatever the convergence.
 //
 // What bounds it on the card.  One linearisation reads 27 bytes per pixel
-// (0.52 MB at 120x160, 1.5 MB at 212x256) and does ~250 flops per pixel;
+// (0.52 MB at 120x160, 1.5 MB at 212x256) and does ~180 flops per pixel;
 // against 3.35 TB/s and 67 TFLOP/s that is a fraction of a microsecond,
 // bytes first, and from the second iteration on the planes come from L2.
 // No launch can come near that, so the bound that matters is latency: the
-// launch itself, the gathers' round trips, and two barriers and one serial
-// 6x6 solve per iteration.
+// launch itself, the gathers' round trips, the barriers, the reduction's
+// depth and the solve's dependent chain, once per iteration.  Most steps
+// run at the coarse levels (an RGB-D frame: ~15 steps at 27x32, a few at
+// 53x64, one or two at the finer two).
 //
 // Design.
-//  * One thread block cluster of 8 blocks (the portable maximum) runs the
-//    whole loop; a launch costs once per level and not once per iteration.
-//    The blocks meet twice per iteration at cluster.sync(), a hardware
-//    barrier: once when their partial sums are ready, once when the new
-//    pose is.  (A cooperative grid launch with grid.sync() would spread the
-//    pixels over more blocks but pays a barrier through device memory
-//    twice per iteration; it was not built, so no time is stated for it.)
-//    Measured on an H100 (700 W): 18.8 us of device time for one step at
-//    120x160, against 7.1 ms in 5,288 launches for the stepwise loop's 15
-//    steps (chip_smoke.py); per step 18.5k SM cycles at 27x32 (solve 8.7k,
-//    block sums 4.0k, pixels 3.8k, the two barriers 1.7k) and 73.6k at
-//    212x256 (pixels 56.5k) (tools/gn_level_stamps.py).
-//  * 512 threads a block (120 registers, no spills).  Measured on an H100
-//    (700 W), SM cycles per step with 256 / 512 / 1024 threads: 16.8k /
-//    18.7k / 25.8k at 27x32, 21.6k / 19.4k / 27.7k at 53x64, 40.0k / 30.5k /
-//    34.2k at 106x128, 122.4k / 73.1k / 68.2k at 212x256
-//    (tools/gn_level_stamps.py); at 1024 the 64-register cap spills.
-//  * Pixels go to threads in a cluster-stride loop; each thread keeps 29
-//    sums in registers: the lower triangle of H (21: the Cholesky
-//    factorisation reads nothing else), g (6), r^2 and the count.
-//  * Deterministic reduction, no float atomics: a thread adds its pixels in
-//    index order, a warp reduces with a shuffle tree, a block adds its
-//    warps in order, and block 0 adds the blocks in rank order, reading
-//    their sums through distributed shared memory (map_shared_rank).
-//  * Lane 0 of block 0's first warp solves (H + damping I) delta = g by a
-//    float32 Cholesky factorisation (a pivot that is not > 0 gives NaN, no
-//    valid pixel gives a zero update), composes xi <- log(exp(xi)
-//    exp(delta)) with the branches and constants of dvo_tpu_torch/lie.py,
-//    keeps the old xi when the new one is not finite, writes the step's
-//    statistics and the transform of the next linearisation into its shared
-//    memory; after the second barrier every block copies that state.  That
-//    step code is gn_step.cuh, which gn.cu's step kernel (the tile-sharded
-//    loop's solve and pose update) shares.
+//  * A launch shape chosen per level from (h, w) alone (level_shape, the
+//    same function as gn_level.launch_shape in Python), among the shapes
+//    the kernel template takes: one block, which runs the loop with
+//    __syncthreads() only and its state in its own shared memory (built
+//    for tools/gn_level_stamps.py; slower at every level), or a thread
+//    block cluster (8 blocks, the portable maximum, or 16 through
+//    cudaFuncAttributeNonPortableClusterSizeAllowed), which meets twice per
+//    iteration at cluster.sync(), a hardware barrier: once when the blocks'
+//    sums are ready, once when the new pose is; every block copies the pose
+//    from block 0 through distributed shared memory.  A launch the card
+//    refuses raises in the wrapper; no other shape is tried.
+//  * Pixels go to threads in a stride loop over the launch; each thread
+//    adds its pixels in index order into 29 sums in registers: the lower
+//    triangle of H (21: the Cholesky factorisation reads nothing else), g
+//    (6), r^2 and the count.
+//  * Deterministic reduction, no float atomics: a warp reduce-scatters its
+//    29 sums (gn_pixel.cuh reduce_scatter: 31 shuffles, lane l ends with sum
+//    l), warp 0 adds the block's warps in order, and in a cluster block 0
+//    adds the blocks in rank order, reading their sums through distributed
+//    shared memory (map_shared_rank).  Two launches repeat bit for bit.
+//    The reduce-scatter adds in the same butterfly pairs as a shuffle tree
+//    per sum (float addition commutes), so at 8 blocks of 512 the level's
+//    outputs are the earlier design's bits; other shapes group the pixels
+//    otherwise, within float noise of gn_level_plain.
+//  * Warp 0 of block 0 runs the step (gn_step.cuh): the 6x6 solve and the
+//    compose spread over its lanes, the NaN guard and the convergence test;
+//    lane 0 writes the step's statistics and the transform of the next
+//    linearisation into the block's shared memory.
+//  * Measured on an H100 80GB HBM3 at 700 W (tools/gn_level_stamps.py), SM
+//    cycles per step, this design / the earlier one (8 blocks of 512 at
+//    every level, a shuffle tree per sum, the solve and the compose in one
+//    thread), in turns: 14.7k / 18.6k at 27x32, 15.1k / 18.4k at 30x40,
+//    15.9k / 19.3k at 53x64, 18.4k / 20.8k at 60x80, 27.1k / 30.1k at
+//    106x128, 29.0k / 31.5k at 120x160, 44.7-45.0k / 71.6-71.8k at 212x256.
+//    A 27x32 step: the step on warp 0 7.2k (the solve 3.7k, the
+//    exponentials 0.9k, the logarithm 0.9k: a chain of dependent IEEE
+//    divisions, square roots and trigonometry that spreading over lanes
+//    shortened by 1.0k), the pixel 3.5k, the sums 2.2k, the two cluster
+//    barriers 1.1k and 0.8k.  One block of 512 threads took 15.6k at 27x32
+//    and 36.4k at 53x64 (two or more pixels a thread, in turn); 16 blocks of
+//    1024 (64 registers, spilled) 44.8k at 212x256 against 47.5k for 16 of
+//    512.
 //  * The statistics past the last active step are 0 and `iterations` counts
 //    the active steps: the contract of the fixed-length masked loop
 //    (gn_level_plain), without its inactive linearisations and with no
@@ -61,6 +72,14 @@
 
 #include <cooperative_groups.h>
 
+// Built with -DDVO_GN_LEVEL_STAMPS (tools/gn_level_stamps.py), the solver
+// also marks five stages of the step: its start, the solve, the compose's
+// exponentials, the logarithm, its end.
+#ifdef DVO_GN_LEVEL_STAMPS
+__shared__ long long dvo_step_marks[5];
+#define DVO_STEP_MARK(k) if (threadIdx.x == 0) dvo_step_marks[k] = clock64()
+#endif
+
 #include "gn_pixel.cuh"
 #include "gn_step.cuh"
 
@@ -68,12 +87,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 8;
-#ifndef DVO_GN_LEVEL_THREADS
-#define DVO_GN_LEVEL_THREADS 512  // tools/gn_level_stamps.py also builds 256 and 1024
-#endif
-constexpr int kThreads = DVO_GN_LEVEL_THREADS;
-constexpr int kWarps = kThreads / 32;
 constexpr int kTerms = dvo::kGNSums;   // 21 lower-triangle H + 6 g + r^2 + count
 constexpr int kState = dvo::kGNState;  // T_inv rows 0-2 (12) | xi (6) | done
 
@@ -83,51 +96,86 @@ struct LevelOut {
   float* update_norms;  // (n,)
   int* valid_counts;    // (n,)
   int* iterations;      // ()
-  long long* stamps;    // (n, 6) clock64() of block 0's thread 0; only with the flag below
+  long long* stamps;    // (n, 6 + 5) clock64() of block 0's thread 0; only with the flag below
+  int steps;            // n
 };
 
 // Built with -DDVO_GN_LEVEL_STAMPS (tools/gn_level_stamps.py), the solver
-// thread stamps six points of every step: loop top, pixels done, block sum
-// done, past the first barrier, solve done, past the second barrier.
+// thread stamps the points of every step: 0 loop top, 1 pixels done, 2 block
+// sums done, 3 past the first cluster barrier (a cluster only), 4 the step
+// solved, 5 past the barrier after it; the step's five marks follow the n x 6
+// points.
 #ifdef DVO_GN_LEVEL_STAMPS
 #define DVO_STAMP(k) if (solver) out.stamps[it * 6 + (k)] = clock64()
 #else
 #define DVO_STAMP(k)
 #endif
 
-// One GN step of the level (gn_step.cuh) from its sums: the step's
-// statistics at slot `it`, the next state.
-__device__ void level_step(const float* acc, float* state, const LevelOut& out, int it,
-                           float damping, float min_update_norm, float min_residual) {
-  const dvo::GNStep s = dvo::gn_step(acc, state + 12, damping, min_update_norm, min_residual);
-  out.residuals[it] = s.mean_res;
-  out.update_norms[it] = s.upd;
-  out.valid_counts[it] = s.count;
-  dvo::write_state(state, s.xi, s.converged);
+// A launch shape: blocks a launch (1, or a cluster of 8 or 16) and threads
+// a block.
+struct Shape {
+  int blocks, threads;
+};
+
+// The shape of a level of h x w pixels (mirrored by gn_level.launch_shape),
+// from tools/gn_level_stamps.py's cycles per step at the rigs' seven level
+// sizes (PERF.md): a cluster of 8 blocks of 512 threads up to 32768 pixels,
+// of 16 blocks of 1024 above.  One block was slower at every level: a pixel
+// is a ~3k-cycle dependent chain, and 512 threads take two or more of them
+// in turn where a cluster takes one.  16 blocks of 512 took 16-24% fewer
+// cycles than 8 at 4,800-19,200 pixels, and 8 blocks of 256 3-5% fewer at
+// 1,200 and fewer; both change the bits, and moved the monocular rig's
+// trajectory (whose keyframe decisions follow float noise) past
+// chip_smoke.py's CUDA-vs-CPU gates of its BA phase.  8 blocks of 512 give
+// the earlier design's bits, and its trajectory.
+Shape level_shape(int h, int w) {
+  if (h * w <= 32768) return {8, 512};
+  return {16, 1024};
 }
 
+// One GN step of the level (gn_step.cuh) from its sums, on the whole warp:
+// the step's statistics at slot `it`, the next state (lane 0 writes).
+__device__ void level_step(const float* acc, float* state, const LevelOut& out, int it,
+                           float damping, float min_update_norm, float min_residual) {
+  float xi[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) xi[i] = state[12 + i];
+  const dvo::GNStep s = dvo::gn_step(acc, xi, damping, min_update_norm, min_residual);
+  __syncwarp();  // every lane has read the state before lane 0 rewrites it
+  if ((threadIdx.x & 31) == 0) {
+    out.residuals[it] = s.mean_res;
+    out.update_norms[it] = s.upd;
+    out.valid_counts[it] = s.count;
+    dvo::write_state(state, s.xi, s.converged);
+#ifdef DVO_GN_LEVEL_STAMPS
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < 5; ++k) out.stamps[out.steps * 6 + it * 5 + k] = dvo_step_marks[k];
+    }
+#endif
+  }
+}
+
+template <int kBlocks, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 gn_level_kernel(dvo::GNPlanes planes, const float* __restrict__ K,
                 const float* __restrict__ xi0, LevelOut out, dvo::GNScalars s,
                 int max_iterations, float damping, float min_update_norm,
                 float min_residual) {
+  constexpr bool kCluster = kBlocks > 1;
+  constexpr int kWarps = kThreads / 32;
   __shared__ float warp_sums[kWarps][kTerms];
-  __shared__ float block_sums[kTerms];  // read by block 0 across the cluster
-  __shared__ float acc[kTerms];         // block 0: the level's sums
-  __shared__ float state[kState];       // block 0: written by the solver
-  __shared__ float local_state[kState];
+  __shared__ float block_sums[kTerms];  // a cluster: read by block 0
+  __shared__ float acc[kTerms];         // block 0 of a cluster: the level's sums
+  __shared__ float state[kState];       // block 0: the solver's; else a copy
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
+  const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const bool solver = rank == 0 && tid == 0;
-  const float* state0 = cluster.map_shared_rank(state, 0);
 
   const float fx = K[0], fy = K[4], cx = K[2], cy = K[5];
   const int n = s.h * s.w;
-  const int stride = kCluster * kThreads;
 
   if (solver) {
     float xi[6];
@@ -135,22 +183,30 @@ gn_level_kernel(dvo::GNPlanes planes, const float* __restrict__ K,
     for (int i = 0; i < 6; ++i) xi[i] = xi0[i];
     dvo::write_state(state, xi, false);
   }
-  cluster.sync();
+  if constexpr (kCluster) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
 
   int it = 0;
   for (; it < max_iterations; ++it) {
     DVO_STAMP(0);
-    // every block takes the pose of this step from block 0
-    if (tid < kState) local_state[tid] = state0[tid];
-    __syncthreads();
-    if (local_state[18] != 0.0f) break;  // converged: the same in every block
+    if constexpr (kCluster) {
+      // every block takes the pose of this step from block 0
+      if (rank != 0 && tid < kState) {
+        state[tid] = cg::this_cluster().map_shared_rank(state, 0)[tid];
+      }
+      __syncthreads();
+    }
+    if (state[18] != 0.0f) break;  // converged: the same in every block
 
-    float t[kTerms];
+    float t[32];  // the 29 sums, then 3 zeros for the reduce-scatter
 #pragma unroll
-    for (int k = 0; k < kTerms; ++k) t[k] = 0.0f;
-    for (int p = rank * kThreads + tid; p < n; p += stride) {
+    for (int k = 0; k < 32; ++k) t[k] = 0.0f;
+    for (int p = rank * kThreads + tid; p < n; p += kBlocks * kThreads) {
       float J[6], r, weight;
-      if (dvo::gn_pixel(planes, s, local_state, fx, fy, cx, cy, p, J, &r, &weight)) {
+      if (dvo::gn_pixel(planes, s, state, fx, fy, cx, cy, p, J, &r, &weight)) {
         const float rw = r * weight;
 #pragma unroll
         for (int a = 0; a < 6; ++a) {
@@ -165,38 +221,40 @@ gn_level_kernel(dvo::GNPlanes planes, const float* __restrict__ K,
     }
 
     DVO_STAMP(1);
-#pragma unroll
-    for (int k = 0; k < kTerms; ++k) {
-      float v = t[k];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) warp_sums[warp][k] = v;
-    }
+    dvo::reduce_scatter(t, lane);
+    if (lane < kTerms) warp_sums[warp][lane] = t[0];
     __syncthreads();
-    if (tid < kTerms) {
+    if (warp == 0 && lane < kTerms) {
       float v = 0.0f;
 #pragma unroll
-      for (int wi = 0; wi < kWarps; ++wi) v += warp_sums[wi][tid];
-      block_sums[tid] = v;
+      for (int wi = 0; wi < kWarps; ++wi) v += warp_sums[wi][lane];
+      block_sums[lane] = v;
     }
     DVO_STAMP(2);
-    cluster.sync();  // every block's sums are in its shared memory
-    DVO_STAMP(3);
-
-    if (rank == 0 && warp == 0) {
-      if (lane < kTerms) {
-        float v = 0.0f;
+    if constexpr (kCluster) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();  // every block's sums are in its shared memory
+      DVO_STAMP(3);
+      if (rank == 0 && warp == 0) {
+        if (lane < kTerms) {
+          float v = 0.0f;
 #pragma unroll
-        for (int b = 0; b < kCluster; ++b) v += cluster.map_shared_rank(block_sums, b)[lane];
-        acc[lane] = v;
-      }
-      __syncwarp();
-      if (lane == 0) {
+          for (int b = 0; b < kBlocks; ++b) v += cluster.map_shared_rank(block_sums, b)[lane];
+          acc[lane] = v;
+        }
+        __syncwarp();
         level_step(acc, state, out, it, damping, min_update_norm, min_residual);
       }
+      DVO_STAMP(4);
+      cluster.sync();  // the new pose is in block 0's shared memory
+    } else {
+      if (warp == 0) {
+        __syncwarp();
+        level_step(block_sums, state, out, it, damping, min_update_norm, min_residual);
+      }
+      DVO_STAMP(4);
+      __syncthreads();  // the new pose is in the block's shared memory
     }
-    DVO_STAMP(4);
-    cluster.sync();  // the new pose is in block 0's shared memory
     DVO_STAMP(5);
   }
 
@@ -211,11 +269,97 @@ gn_level_kernel(dvo::GNPlanes planes, const float* __restrict__ K,
       out.valid_counts[k] = 0;
     }
   }
-  // no block leaves while another may still read its shared memory
-  cluster.sync();
+  // no block of a cluster leaves while another may still read its shared memory
+  if constexpr (kCluster) cg::this_cluster().sync();
+}
+
+template <int kBlocks, int kThreads>
+cudaError_t launch_level(const dvo::GNPlanes& planes, const float* K, const float* xi0,
+                         const LevelOut& out, const dvo::GNScalars& s, int max_iterations,
+                         float damping, float min_update_norm, float min_residual,
+                         cudaStream_t stream) {
+  auto kernel = gn_level_kernel<kBlocks, kThreads>;
+  if constexpr (kBlocks == 1) {
+    kernel<<<1, kThreads, 0, stream>>>(planes, K, xi0, out, s, max_iterations, damping,
+                                       min_update_norm, min_residual);
+    return cudaGetLastError();
+  } else {
+    if constexpr (kBlocks > 8) {
+      static const cudaError_t allowed =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (allowed != cudaSuccess) return allowed;
+    }
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(kBlocks, 1, 1);
+    config.blockDim = dim3(kThreads, 1, 1);
+    config.dynamicSmemBytes = 0;
+    config.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kBlocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&config, kernel, planes, K, xi0, out, s,
+                                               max_iterations, damping, min_update_norm,
+                                               min_residual);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
+}
+
+// The level kernel at `shape`: one of the shapes instantiated here, else
+// cudaErrorInvalidConfiguration.
+cudaError_t launch_shaped(Shape shape, const dvo::GNPlanes& planes, const float* K,
+                          const float* xi0, const LevelOut& out, const dvo::GNScalars& s,
+                          int max_iterations, float damping, float min_update_norm,
+                          float min_residual, cudaStream_t stream) {
+#define DVO_SHAPE(B, T)                                                                  \
+  if (shape.blocks == B && shape.threads == T)                                           \
+    return launch_level<B, T>(planes, K, xi0, out, s, max_iterations, damping,           \
+                              min_update_norm, min_residual, stream);
+  DVO_SHAPE(8, 512)
+  DVO_SHAPE(16, 1024)
+#ifdef DVO_GN_LEVEL_STAMPS  // every candidate of tools/gn_level_stamps.py
+  DVO_SHAPE(1, 256)
+  DVO_SHAPE(1, 512)
+  DVO_SHAPE(1, 1024)
+  DVO_SHAPE(8, 256)
+  DVO_SHAPE(8, 1024)
+  DVO_SHAPE(16, 256)
+  DVO_SHAPE(16, 512)
+#endif
+#undef DVO_SHAPE
+  return cudaErrorInvalidConfiguration;
+}
+
+int level_call(Shape shape, const float* obj_gray, const uint8_t* obj_mask,
+               const float* ref_depth, const float* ref_sigma, const float* ref_gray,
+               const uint8_t* ref_mask, const float* ref_gx, const float* ref_gy,
+               const uint8_t* ref_gmask, const float* K, const float* xi0, float* xi,
+               float* residuals, float* update_norms, int* valid_counts, int* iterations,
+               long long* stamps, int h, int w, float step, float min_depth, float sigma_lo,
+               float sigma_hi, int weight_b_only, int crop, int crop_x0, int crop_x1,
+               int crop_y0, int crop_y1, int max_iterations, float damping,
+               float min_update_norm, float min_residual, void* stream) {
+  const dvo::GNPlanes planes{obj_gray, obj_mask, ref_depth, ref_sigma, ref_gray,
+                             ref_mask,  ref_gx,   ref_gy,    ref_gmask};
+  // The whole image: the block is the image, no row offset.
+  const dvo::GNScalars s{h, w, step, min_depth, sigma_lo, sigma_hi,
+                         weight_b_only, crop, crop_x0, crop_x1, crop_y0, crop_y1,
+                         0, h, w};
+  const LevelOut out{xi, residuals, update_norms, valid_counts, iterations, stamps,
+                     max_iterations};
+  return (int)launch_shaped(shape, planes, K, xi0, out, s, max_iterations, damping,
+                            min_update_norm, min_residual, (cudaStream_t)stream);
 }
 
 }  // namespace
+
+// The launch shape of a level of h x w pixels: blocks a launch and threads
+// a block (gn_level.launch_shape holds its mirror against these).
+extern "C" int dvo_gn_level_blocks(int h, int w) { return level_shape(h, w).blocks; }
+extern "C" int dvo_gn_level_threads(int h, int w) { return level_shape(h, w).threads; }
 
 // The level's GN loop on `stream`; `stamps` may be null unless the library
 // was built with DVO_GN_LEVEL_STAMPS.  Returns the launch's error code.
@@ -231,28 +375,32 @@ extern "C" int dvo_gn_level(const float* obj_gray, const uint8_t* obj_mask,
                             int weight_b_only, int crop, int crop_x0, int crop_x1,
                             int crop_y0, int crop_y1, int max_iterations, float damping,
                             float min_update_norm, float min_residual, void* stream) {
-  const dvo::GNPlanes planes{obj_gray, obj_mask, ref_depth, ref_sigma, ref_gray,
-                             ref_mask,  ref_gx,   ref_gy,    ref_gmask};
-  // The whole image: the block is the image, no row offset.
-  const dvo::GNScalars s{h, w, step, min_depth, sigma_lo, sigma_hi,
-                         weight_b_only, crop, crop_x0, crop_x1, crop_y0, crop_y1,
-                         0, h, w};
-  const LevelOut out{xi, residuals, update_norms, valid_counts, iterations, stamps};
-
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kCluster, 1, 1);
-  config.blockDim = dim3(kThreads, 1, 1);
-  config.dynamicSmemBytes = 0;
-  config.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&config, gn_level_kernel, planes, K, xi0, out, s, max_iterations,
-                         damping, min_update_norm, min_residual);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  return level_call(level_shape(h, w), obj_gray, obj_mask, ref_depth, ref_sigma, ref_gray,
+                    ref_mask, ref_gx, ref_gy, ref_gmask, K, xi0, xi, residuals, update_norms,
+                    valid_counts, iterations, stamps, h, w, step, min_depth, sigma_lo,
+                    sigma_hi, weight_b_only, crop, crop_x0, crop_x1, crop_y0, crop_y1,
+                    max_iterations, damping, min_update_norm, min_residual, stream);
 }
+
+#ifdef DVO_GN_LEVEL_STAMPS
+// dvo_gn_level at a given shape (tools/gn_level_stamps.py's candidates).
+extern "C" int dvo_gn_level_shaped(int blocks, int threads, const float* obj_gray,
+                                   const uint8_t* obj_mask, const float* ref_depth,
+                                   const float* ref_sigma, const float* ref_gray,
+                                   const uint8_t* ref_mask, const float* ref_gx,
+                                   const float* ref_gy, const uint8_t* ref_gmask,
+                                   const float* K, const float* xi0, float* xi,
+                                   float* residuals, float* update_norms, int* valid_counts,
+                                   int* iterations, long long* stamps, int h, int w,
+                                   float step, float min_depth, float sigma_lo,
+                                   float sigma_hi, int weight_b_only, int crop, int crop_x0,
+                                   int crop_x1, int crop_y0, int crop_y1, int max_iterations,
+                                   float damping, float min_update_norm, float min_residual,
+                                   void* stream) {
+  return level_call(Shape{blocks, threads}, obj_gray, obj_mask, ref_depth, ref_sigma,
+                    ref_gray, ref_mask, ref_gx, ref_gy, ref_gmask, K, xi0, xi, residuals,
+                    update_norms, valid_counts, iterations, stamps, h, w, step, min_depth,
+                    sigma_lo, sigma_hi, weight_b_only, crop, crop_x0, crop_x1, crop_y0,
+                    crop_y1, max_iterations, damping, min_update_norm, min_residual, stream);
+}
+#endif

@@ -2,7 +2,7 @@
 // (optimize.cpp:28-90), shared by gn.cu (one linearisation per launch) and
 // gn_level.cu (a level's whole GN loop per launch): warp the pixel, sample
 // the reference planes, apply the gates, and give the Jacobian row, the
-// residual and the weight.  It follows the XLA twin
+// residual and the weight; and the warp's reduce-scatter of the sums.  It follows the XLA twin
 // dvo_tpu/models/tracker.py:gn_terms and the port's gn_terms_plain
 // operation by operation (see dvo_kernels.h on -fmad=false).
 //
@@ -132,6 +132,31 @@ __device__ __forceinline__ bool gn_pixel(const GNPlanes& P, const GNScalars& s,
   *r = i2 - P.obj_gray[p];
   *weight = s.step / fminf(fmaxf(P.ref_sigma[p], s.sigma_lo), s.sigma_hi);
   return true;
+}
+
+// One step of a warp's reduce-scatter over 2 O values a lane: the lane
+// keeps the half its bit O selects, adds its partner's (lane ^ O) copy of
+// that half, and sends the other.
+template <int O>
+__device__ __forceinline__ void fold(float (&t)[32], int lane) {
+  const bool upper = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = upper ? t[i] : t[i + O];
+    const float keep = upper ? t[i + O] : t[i];
+    t[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// After O = 16, 8, 4, 2, 1, lane l holds in t[0] the warp's sum of value l:
+// 31 shuffles for 32 sums, where a shuffle tree for each would take 160.
+// The order of every addition is fixed, so a run repeats bit for bit.
+__device__ __forceinline__ void reduce_scatter(float (&t)[32], int lane) {
+  fold<16>(t, lane);
+  fold<8>(t, lane);
+  fold<4>(t, lane);
+  fold<2>(t, lane);
+  fold<1>(t, lane);
 }
 
 }  // namespace dvo

@@ -54,6 +54,13 @@ def level_planes(obj: Scene, ref: Scene):
             ref.gray, ref.mask, ref.gx, ref.gy, ref.gmask)
 
 
+def gn_normal_equations(obj: Scene, ref: Scene, xi, level_index: int, cfg: TrackerConfig):
+    """One linearisation over a level's whole image at twist ``xi``: the
+    counterpart of ``dvo_tpu.models.tracker.gn_normal_equations``.
+    Returns (H (6, 6), g (6,), residual_sum, count)."""
+    return gn_terms(*level_planes(obj, ref), ref.K, xi, level_index, cfg)
+
+
 def track_level(obj: Scene, ref: Scene, xi0, level_index: int, cfg: TrackerConfig):
     """One level's GN loop from ``xi0`` (``ops.cuda.gn_level``).
     Returns (xi, (residuals, update_norms, counts, iterations))."""

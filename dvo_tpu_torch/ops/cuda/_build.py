@@ -54,6 +54,8 @@ _SIGNATURES = {
     "dvo_gn_num_blocks": ([_I], _I),
     "dvo_gn_terms": ([_P] * 14 + [_I] * 5 + [_F] * 4 + [_I] * 6 + [_P], _I),
     "dvo_gn_step": ([_P] * 6 + [_I] + [_F] * 3 + [_P], _I),
+    "dvo_gn_level_blocks": ([_I, _I], _I),
+    "dvo_gn_level_threads": ([_I, _I], _I),
     "dvo_gn_level": ([_P] * 17 + [_I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,
                                   _I, _F, _F, _F, _P], _I),
     "dvo_regularize": ([_P] * 3 + [_I, _I, _F, _F, _P], _I),

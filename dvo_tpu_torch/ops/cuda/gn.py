@@ -16,7 +16,8 @@ are given whole — the hook of the tile-sharded tracker
 
 The kernel writes 29 sums (``N_SUMS``): H's lower triangle in row order
 (entry a (a + 1) / 2 + b is H[a, b], b <= a), g, the residual sum and the
-count (a float, exact below 2**24 pixels).  ``pack_sums`` and
+count (a float, exact below 2**24 pixels: ``check_pixels`` refuses larger
+images in every wrapper of the count, before any launch).  ``pack_sums`` and
 ``unpack_sums`` convert between them and (H, g, residual_sum, count).
 """
 
@@ -30,6 +31,9 @@ from dvo_tpu_torch.ops.sampling import bilinear_dense, bilinear_masked
 from dvo_tpu_torch.ops.warp import back_project, pixel_grid, warp_points
 
 N_SUMS = 29   # 21 lower-triangle H + 6 g + r^2 + count
+# The count travels as a float32 beside the float sums: exact for any image
+# of fewer than 2**24 pixels.
+MAX_PIXELS = 1 << 24
 THREADS = 256  # csrc/gn.cu kThreads (work()'s count; launches ask the library)
 PLANE_NAMES = ("obj_gray", "obj_mask", "ref_depth", "ref_sigma", "ref_gray", "ref_mask",
                "ref_gx", "ref_gy", "ref_gmask")
@@ -41,6 +45,12 @@ PLANE_NAMES = ("obj_gray", "obj_mask", "ref_depth", "ref_sigma", "ref_gray", "re
 BYTES_PER_PIXEL = 6 * 4 + 3
 FLOPS_PER_PIXEL = 30 + 4 + 4 * 12
 FLOPS_PER_VALID_PIXEL = 29 + 5 + 63
+
+
+def check_pixels(h: int, w: int) -> None:
+    """Raise for an image whose valid count a float32 may round."""
+    if h * w >= MAX_PIXELS:
+        raise ValueError(f"a {h}x{w} image: the count is summed in float32")
 
 
 def num_blocks(n: int) -> int:
@@ -95,14 +105,14 @@ def unpack_sums(sums):
             sums[28].to(torch.int32))
 
 
-def gn_terms_plain(obj_gray, obj_mask, ref_depth, ref_sigma,
-                   ref_gray, ref_mask, ref_gx, ref_gy, ref_gmask,
-                   K, T_inv, level_index: int, cfg: TrackerConfig,
-                   y_offset=0, full_shape=None):
-    """Normal-equation terms over a row block of the image
+def pixel_terms_plain(obj_gray, obj_mask, ref_depth, ref_sigma,
+                      ref_gray, ref_mask, ref_gx, ref_gy, ref_gmask,
+                      K, T_inv, level_index: int, cfg: TrackerConfig,
+                      y_offset=0, full_shape=None):
+    """Each pixel's part of a linearisation over a row block of the image
     (optimize.cpp:28-90): the block's pixels on rows [y_offset, y_offset +
     h) of a ``full_shape`` image (default: the block is the image).
-    Returns (H (6, 6), g (6,), residual_sum (), count () int32)."""
+    Returns (J (h, w, 6), residual (h, w), weight (h, w), valid (h, w))."""
     h, w = obj_gray.shape
     full_h, full_w = (h, w) if full_shape is None else full_shape
     xs, ys = pixel_grid(h, w, device=obj_gray.device)
@@ -150,7 +160,19 @@ def gn_terms_plain(obj_gray, obj_mask, ref_depth, ref_sigma,
     r = i2 - obj_gray
     lo, hi = cfg.sigma_clamp
     weight = _level_step(cfg, level_index) / torch.clamp(ref_sigma, lo, hi)
+    return J, r, weight, valid
 
+
+def gn_terms_plain(obj_gray, obj_mask, ref_depth, ref_sigma,
+                   ref_gray, ref_mask, ref_gx, ref_gy, ref_gmask,
+                   K, T_inv, level_index: int, cfg: TrackerConfig,
+                   y_offset=0, full_shape=None):
+    """Normal-equation terms over a row block of the image: the pixels'
+    parts (``pixel_terms_plain``) summed.
+    Returns (H (6, 6), g (6,), residual_sum (), count () int32)."""
+    J, r, weight, valid = pixel_terms_plain(obj_gray, obj_mask, ref_depth, ref_sigma,
+                                            ref_gray, ref_mask, ref_gx, ref_gy, ref_gmask,
+                                            K, T_inv, level_index, cfg, y_offset, full_shape)
     vf = valid.to(torch.float32)
     Jm = J * vf[..., None]
     if cfg.compat_weight_b_only:
@@ -188,6 +210,7 @@ def terms_launcher(planes, K, level_index: int, cfg: TrackerConfig, y_offset=0,
     ``gn_terms_plain``; on CUDA tensors each call is one ``csrc/gn.cu``
     launch on the stream that was current here (it launches or raises)."""
     obj_gray = planes[0]
+    check_pixels(*(obj_gray.shape if full_shape is None else full_shape))
     if resolve_device(obj_gray) == "plain":
         def launch_plain(T_inv, sums):
             T = torch.cat([T_inv.reshape(-1)[:12], T_inv.new_tensor([0.0, 0.0, 0.0, 1.0])])
@@ -242,6 +265,7 @@ def gn_terms(obj_gray, obj_mask, ref_depth, ref_sigma,
     () int32)."""
     planes = (obj_gray, obj_mask, ref_depth, ref_sigma, ref_gray, ref_mask, ref_gx, ref_gy,
               ref_gmask)
+    check_pixels(*(obj_gray.shape if full_shape is None else full_shape))
     if resolve_device(obj_gray) == "plain":
         return gn_terms_plain(*planes, K, T_inv, level_index, cfg, y_offset, full_shape)
     launch = terms_launcher(planes, K, level_index, cfg, y_offset, full_shape)

@@ -35,6 +35,7 @@ from dvo_tpu_torch.ops.cuda.gn import (
     N_SUMS,
     PLANE_NAMES,
     _level_step,
+    check_pixels,
     gn_terms_plain,
     unpack_sums,
 )
@@ -45,6 +46,15 @@ LEVEL_FLOPS_PER_VALID_PIXEL = FLOPS_PER_VALID_PIXEL
 # Cholesky factorisation and the two substitutions (~200), three se3_exp, one
 # se3_log and the 3x3 products between them (~500).
 EPILOGUE_FLOPS = 700
+
+
+def launch_shape(h: int, w: int):
+    """(blocks a launch, threads a block) of the level kernel at h x w
+    pixels: ``csrc/gn_level.cu``'s ``level_shape``, which the kernel's C
+    entries ``dvo_gn_level_blocks``/``dvo_gn_level_threads`` give on the
+    card: a cluster of 8 blocks of 512 threads up to 32768 pixels, of 16
+    blocks of 1024 above (the kernel's comment and PERF.md say why)."""
+    return (8, 512) if h * w <= 32768 else (16, 1024)
 
 
 def work(shape, valid_counts, max_iterations: int):
@@ -123,6 +133,7 @@ def gn_level(planes, K, xi0, level_index: int, cfg: TrackerConfig):
     """``gn_level_plain`` for CPU tensors; one ``csrc/gn_level.cu`` launch
     for CUDA tensors (it launches or raises, and never synchronises)."""
     obj_gray = planes[0]
+    check_pixels(*obj_gray.shape)
     if resolve_device(obj_gray) == "plain":
         return gn_level_plain(planes, K, xi0, level_index, cfg)
     h, w = obj_gray.shape

@@ -16,6 +16,10 @@ def cull_image(img: torch.Tensor, times: int) -> torch.Tensor:
     return img[..., ::r, ::r].contiguous()
 
 
+# A validity mask follows the same stride (``dvo_tpu.ops.image.cull_mask``).
+cull_mask = cull_image
+
+
 def cull_intrinsic(K: torch.Tensor, times: int) -> torch.Tensor:
     """K / 2**times with K[2, 2] restored to 1."""
     if times == 0:

@@ -34,16 +34,6 @@ from dvo_tpu_torch.ops.cuda import gn
 from dvo_tpu_torch.ops.cuda.gn_level import SEED, STATE, step_launcher
 from dvo_tpu_torch.parallel.mesh import all_reduce_, all_reduce_sum, axis_group, tile_rows
 
-# The count travels as a float32 beside the float sums: exact for any image
-# of fewer than 2**24 pixels.
-MAX_PIXELS = 1 << 24
-
-
-def _check_pixels(h: int, w: int) -> None:
-    if h * w >= MAX_PIXELS:
-        raise ValueError(f"a {h}x{w} image: the count is summed in float32")
-
-
 def _sharded_terms(mesh, axis):
     """A terms function with ``gn.gn_terms``' arguments (the nine whole
     planes, K, T_inv, level, cfg) that linearises this rank's row block and
@@ -52,7 +42,6 @@ def _sharded_terms(mesh, axis):
     def terms(obj_gray, obj_mask, ref_depth, ref_sigma, ref_gray, ref_mask, ref_gx, ref_gy,
               ref_gmask, K, T_inv, level_index, cfg):
         h, w = ref_depth.shape
-        _check_pixels(h, w)
         y0, bh, group = tile_rows(mesh, axis, h)
         rows = slice(y0, y0 + bh)
         Hm, g, rsum, count = gn.gn_terms(
@@ -87,7 +76,6 @@ def sharded_track_level(obj: Scene, ref: Scene, xi0, level_index: int, cfg: Trac
     host."""
     planes = level_planes(obj, ref)
     h, w = planes[2].shape
-    _check_pixels(h, w)
     y0, bh, group = tile_rows(mesh, axis, h)
     rows = slice(y0, y0 + bh)
     terms = gn.terms_launcher((*(p[rows] for p in planes[:4]), *planes[4:]), ref.K,

@@ -1,107 +1,204 @@
-"""Where one GN step's time goes inside ``csrc/gn_level.cu``.
+"""Where one GN step's time goes inside ``csrc/gn_level.cu``, and the level
+kernel against an earlier tree's.
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 -m dvo_tpu_torch.tools.gn_level_stamps
 
-Builds ``csrc/gn_level.cu`` once more with ``-DDVO_GN_LEVEL_STAMPS`` into the
-git-ignored build directory, at 512 threads a block (the kernel's own) and
-at 256 and 1024: the solver thread (block 0, thread 0) then stamps
-``clock64()`` at six points of every step.  Runs 15 steps that never
-converge (both thresholds 0) at each level of ``chip_smoke.py``'s RGB-D rig
-and prints, per thread count and level, the median SM cycles of each part
-of a step, beside the card's maximum SM clock (a launch this short does not
-hold the clock that ``nvidia-smi`` samples, so the cycles are not
-converted).
+builds ``csrc/gn_level.cu`` once more with ``-DDVO_GN_LEVEL_STAMPS`` into the
+git-ignored build directory.  That build stamps ``clock64()`` in the solver
+thread (block 0, thread 0) at six points of every step: loop top, pixels
+done, block sums done, past the first cluster barrier (a launch of one block
+has none: the point is absent), the step solved, past the barrier after it;
+and at five marks inside the step (``MARKS``: its start, the solve, the
+compose's exponentials, the logarithm, its end).
+It also exports ``dvo_gn_level_shaped``, the level kernel at any launch
+shape of ``CANDIDATES`` (blocks a launch, threads a block), which the
+product's ``dvo_gn_level`` chooses from (h, w) alone.  The tool runs 15
+steps that never converge (both thresholds 0) at every candidate and every
+level of ``chip_smoke.py``'s mono, RGB-D and Kinect-mono rigs, holds each
+run against ``gn_level_plain`` at ``chip_smoke.py``'s tolerances, and prints
+per candidate and level the median SM cycles of each part of a step and of
+the whole step, beside the card's maximum SM clock (a launch this short does
+not hold the clock that ``nvidia-smi`` samples, so the cycles are not
+converted), and the shape ``gn_level.launch_shape`` takes there.
 
     python3 -m dvo_tpu_torch.tools.gn_level_stamps --baseline DIR
 
-instead builds ``DIR/dvo_tpu_torch/csrc/gn_level.cu`` (an earlier tree,
-unpacked with ``git archive <commit> dvo_tpu_torch/csrc | tar -x -C DIR``)
-and holds this tree's level kernel against it bit for bit: every output of
-a 15-step level at every level of ``chip_smoke.py``'s mono and RGB-D rigs'
-first two frames.
+builds ``DIR/dvo_tpu_torch/csrc/gn_level.cu`` (an earlier tree, unpacked with
+``git archive <commit> dvo_tpu_torch/csrc | tar -x -C DIR``) and holds this
+tree's level kernel against it at every level of the mono and RGB-D rigs'
+first two frames: "bitwise" where every output is equal, else the largest
+|d xi| and |d statistics| and whether the iterations and valid counts are
+equal.
+
+    python3 -m dvo_tpu_torch.tools.gn_level_stamps --turns DIR
+
+measures DIR's kernels (``gn_level.cu`` and ``gn.cu``'s step kernel, built
+from DIR's sources and put in place of this tree's through the same C
+entries) and this tree's in turns: DIR, this tree, this tree, DIR.  Each
+turn reads the cycles of each part of a step at every level (each tree's
+own stamps build, the shape each tree's ``dvo_gn_level`` takes); the
+graphed mono and RGB-D paths' ms/frame, device-busy us a frame and the
+level kernel's device us a frame by level (``chip_smoke.gn_level_per_frame``)
+with the steps a level; and the step kernel's device us.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import itertools
 import json
 import os
+import statistics
 import subprocess
 import sys
+import time
+from pathlib import Path
 
 import torch
 
 STEPS = 15
-THREADS = (512, 256, 1024)
-PARTS = ("pose copy + pixels", "warp and block sums", "barrier 1", "cluster sum + solve",
-         "barrier 2", "loop")
+POINTS = ("loop top", "pixels done", "block sums done", "past barrier 1", "step solved",
+          "past barrier 2")
+# (blocks a launch, threads a block) the stamps build instantiates
+CANDIDATES = ((1, 256), (1, 512), (1, 1024), (8, 256), (8, 512), (8, 1024), (16, 256),
+              (16, 512), (16, 1024))
+TIMED_RUNS = 3      # host-clock runs of a graphed path a turn (the median is kept)
 
 
-def build_with_stamps(threads_per_block):
-    """One library per thread count, all ``nvcc`` processes at once."""
+def _nvcc(args, what):
     from dvo_tpu_torch.ops.cuda import _build
 
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    outs = [_build.BUILD_DIR / f"libdvo_gn_level_stamps_{t}.{os.getpid()}.so"
-            for t in threads_per_block]
-    procs = [subprocess.Popen(
-        [_build.nvcc(), *_build.NVCC_FLAGS, "-DDVO_GN_LEVEL_STAMPS",
-         f"-DDVO_GN_LEVEL_THREADS={t}", "-shared", "-I", str(_build.SOURCE_DIR), "-o", str(out),
-         str(_build.SOURCE_DIR / "gn_level.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for t, out in zip(threads_per_block, outs)]
-    libs = []
-    for proc, out in zip(procs, outs):
-        stderr = proc.communicate()[1]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{stderr}")
-        lib = ctypes.CDLL(str(out))
-        out.unlink()
-        argtypes, restype = _build._SIGNATURES["dvo_gn_level"]
-        lib.dvo_gn_level.argtypes, lib.dvo_gn_level.restype = argtypes, restype
-        libs.append(lib)
-    return libs
-
-
-def build_baseline_level(tree):
-    """An earlier tree's ``gn_level.cu``, from its own sources, bound with
-    this tree's signature of ``dvo_gn_level``."""
-    from pathlib import Path
-
-    from dvo_tpu_torch.ops.cuda import _build
-
-    src = Path(tree) / "dvo_tpu_torch" / "csrc"
-    out = _build.BUILD_DIR / f"libdvo_gn_level_baseline.{os.getpid()}.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    done = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(src), "-o",
-                           str(out), str(src / "gn_level.cu")], capture_output=True, text=True)
+    done = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, *args], capture_output=True,
+                          text=True)
     if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({done.returncode}) for the baseline:\n{done.stderr}")
-    lib = _build.bind(ctypes.CDLL(str(out)), ["dvo_gn_level"])
+        raise RuntimeError(f"nvcc failed ({done.returncode}) for {what}:\n{done.stderr}")
+
+
+def _load(out, names):
+    from dvo_tpu_torch.ops.cuda import _build
+
+    lib = ctypes.CDLL(str(out))
     out.unlink()
+    for name in names:
+        if not hasattr(lib, name):
+            continue
+        if name == "dvo_gn_level_shaped":
+            lib.dvo_gn_level_shaped.argtypes = [ctypes.c_int, ctypes.c_int] + \
+                _build._SIGNATURES["dvo_gn_level"][0]
+            lib.dvo_gn_level_shaped.restype = ctypes.c_int
+        else:
+            _build.bind(lib, [name])
     return lib
 
 
-def level_kernel_against(tree, cs, dev):
-    """This tree's level kernel against ``tree``'s on the mono and RGB-D
-    rigs: every output equal bit for bit.  Returns the levels compared."""
+def build_stamps(csrc: Path, tag: str):
+    """``csrc``'s ``gn_level.cu`` built with its clock stamps."""
+    from dvo_tpu_torch.ops.cuda import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / f"libdvo_gn_level_stamps_{tag}.{os.getpid()}.so"
+    _nvcc(["-DDVO_GN_LEVEL_STAMPS", "-shared", "-I", str(csrc), "-o", str(out),
+           str(csrc / "gn_level.cu")], f"{csrc} with stamps")
+    return _load(out, ["dvo_gn_level", "dvo_gn_level_shaped"])
+
+
+_TREES = itertools.count()
+
+
+def build_tree(tree):
+    """An earlier tree's ``gn.cu`` and ``gn_level.cu``, from its own sources,
+    bound with this tree's signatures."""
+    from dvo_tpu_torch.ops.cuda import _build
+
+    src = Path(tree) / "dvo_tpu_torch" / "csrc"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # a name of its own per tree: dlopen hands back a library already loaded
+    # under the same path, whatever the file now holds
+    tag = f"{_build.BUILD_DIR}/libdvo_tree_{next(_TREES)}.{os.getpid()}"
+    objs = [Path(f"{tag}.{name}.o") for name in ("gn", "gn_level")]
+    procs = [subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-c",
+                               str(src / f"{name}.cu"), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, obj in zip(("gn", "gn_level"), objs)]
+    for proc in procs:
+        err = proc.communicate()[1]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:\n{err}")
+    out = Path(f"{tag}.so")
+    done = subprocess.run(_build.link_command(objs, out), capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if done.returncode != 0:
+        raise RuntimeError(f"link failed for {src}:\n{done.stderr}")
+    return _load(out, ["dvo_gn_level", "dvo_gn_step", "dvo_gn_num_blocks", "dvo_gn_terms"])
+
+
+@contextlib.contextmanager
+def kernels_of(lib):
+    """The wrappers launch ``lib``'s ``dvo_gn_level`` and ``dvo_gn_step``
+    (and this tree's other entries); ``lib`` None: this tree's own."""
+    from dvo_tpu_torch.ops.cuda import _build
+
+    if lib is None:
+        yield
+        return
+    real = _build.library()
+
+    class Swapped:
+        dvo_gn_level = lib.dvo_gn_level
+        dvo_gn_step = lib.dvo_gn_step
+
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+    saved = _build.library
+    _build.library = lambda: Swapped()
+    try:
+        yield
+    finally:
+        _build.library = saved
+
+
+def level_args(planes, K, xi0, level, t, n, floats, ints, stamps):
+    """``dvo_gn_level``'s arguments after the shape (the C ABI's order)."""
+    from dvo_tpu_torch.ops.cuda import _build
+    from dvo_tpu_torch.ops.cuda.gn import _level_step
+
+    h, w = planes[0].shape
+    return (*(p.data_ptr() for p in planes), K.data_ptr(), xi0.data_ptr(), floats.data_ptr(),
+            floats[6:].data_ptr(), floats[6 + n:].data_ptr(), ints.data_ptr(),
+            ints[n:].data_ptr(), None if stamps is None else stamps.data_ptr(), h, w,
+            _level_step(t, level), t.min_depth, t.sigma_clamp[0], t.sigma_clamp[1],
+            int(t.compat_weight_b_only), int(level == t.crop_level), t.crop_x[0], t.crop_x[1],
+            t.crop_y[0], t.crop_y[1], n, t.damping, t.min_update_norm, t.min_residual,
+            _build.stream_handle(planes[0].device))
+
+
+def rig_levels(cs, dev):
+    """(rig, level, planes, K, tracker config) at every level of the mono,
+    RGB-D and Kinect-mono rigs: each rig's first frame as the reference,
+    its second as the object."""
     from dvo_tpu_torch.config import DVOConfig
     from dvo_tpu_torch.models.frame import build_frame_with_depth, build_tracking_frame
-    from dvo_tpu_torch.models.odometry import _cull_chunk, monocular_init, raw_depth
+    from dvo_tpu_torch.models.odometry import (
+        _cull_chunk,
+        monocular_init,
+        monocular_init_with_depth,
+        raw_depth,
+    )
     from dvo_tpu_torch.models.tracker import level_planes
-    from dvo_tpu_torch.ops.cuda import _build, gn_level
 
-    base = build_baseline_level(tree)
-    pairs = []
+    out = []
     cfg = DVOConfig.monocular()
     grays, masks, K, _ = cs.render_sequence(dev)
     state = monocular_init(grays[0], masks[0], K, cfg, device=dev)
     cfg0, K0, (g, m) = _cull_chunk(cfg, K, grays[1], masks[1])
     frame = build_tracking_frame(g, m, K0, cfg.pyramid.levels, 0, 1)
-    pairs.append(("mono", frame, state.ref, cfg0.tracker))
+    pairs = [("mono", frame, state.ref, cfg0.tracker)]
     cfg_r = DVOConfig.rgbd()
     r_grays, r_masks, r_counts, r_K = cs.render_rgbd(dev)
     cfg_rc, K_r, (g, m, c) = _cull_chunk(cfg_r, r_K.to(dev), *(
@@ -111,36 +208,247 @@ def level_kernel_against(tree, cs, dev):
     ref = build_frame_with_depth(g[0], m[0], d[0], sg[0], K_r, levels, 0, 0)
     obj = build_frame_with_depth(g[1], m[1], d[1], sg[1], K_r, levels, 0, 1)
     pairs.append(("rgbd", obj, ref, cfg_rc.tracker))
-    compared = []
-    for label, obj, ref, cfg_t in pairs:
-        xi0 = torch.zeros(6, device=dev)
+    d0, s0 = raw_depth(r_counts[0].to(dev), cs.DEPTH_SCALE)
+    kin = monocular_init_with_depth(r_grays[0].to(dev), r_masks[0].to(dev), d0, s0,
+                                    r_K.to(dev), cfg, device=dev)
+    cfg_k, K_k, (g, m) = _cull_chunk(cfg, r_K.to(dev), r_grays[1].to(dev), r_masks[1].to(dev))
+    pairs.append(("kinect_mono", build_tracking_frame(g, m, K_k, cfg.pyramid.levels, 0, 1),
+                  kin.ref, cfg_k.tracker))
+    for rig, obj, ref, t in pairs:
         for level in range(len(ref.scenes)):
-            planes = level_planes(obj.scenes[level], ref.scenes[level])
-            Kl = ref.scenes[level].K
-            new = gn_level.gn_level(planes, Kl, xi0, level, cfg_t)
-            n = cfg_t.max_iterations
-            floats = torch.empty(6 + 2 * n, device=dev)
-            ints = torch.empty(n + 1, dtype=torch.int32, device=dev)
-            h, w = planes[0].shape
-            code = base.dvo_gn_level(
-                *(p.data_ptr() for p in planes), Kl.data_ptr(), xi0.data_ptr(),
-                floats.data_ptr(), floats[6:].data_ptr(), floats[6 + n:].data_ptr(),
-                ints.data_ptr(), ints[n:].data_ptr(), None, h, w,
-                cfg_t.level_steps[min(level, len(cfg_t.level_steps) - 1)], cfg_t.min_depth,
-                cfg_t.sigma_clamp[0], cfg_t.sigma_clamp[1], int(cfg_t.compat_weight_b_only),
-                int(level == cfg_t.crop_level), cfg_t.crop_x[0], cfg_t.crop_x[1],
-                cfg_t.crop_y[0], cfg_t.crop_y[1], n, cfg_t.damping, cfg_t.min_update_norm,
-                cfg_t.min_residual, _build.stream_handle(dev))
-            _build.check(code, "gn_level (baseline)")
-            old = (floats[:6], floats[6:6 + n], floats[6 + n:], ints[:n], ints[n])
-            same = all(torch.equal(a, b) for a, b in zip(new, old))
-            print(f"gn_level {label} level {level} {h}x{w}: {int(new[4])} steps, outputs equal "
-                  f"bitwise to the baseline's: {same}", flush=True)
-            if not same:
-                raise AssertionError(f"gn_level {label} level {level}: differs from {tree}")
-            compared.append(f"{label} {h}x{w}")
-            xi0 = new[0]
-    return compared
+            out.append((rig, level, level_planes(obj.scenes[level], ref.scenes[level]),
+                        ref.scenes[level].K, t))
+    return out
+
+
+MARKS = ("step start", "solved", "exponentials", "logarithm", "step end")
+
+
+def stamp_parts(stamps):
+    """(the median cycles of each part between the points stamped, by name;
+    the median cycles of a whole step) from a stamps buffer: (STEPS, 6)
+    points, a point left at 0 being absent, then (STEPS, 5) marks inside the
+    step where the build has them."""
+    s = stamps[:STEPS * len(POINTS)].reshape(STEPS, len(POINTS)).cpu().to(torch.float64)
+    marks = stamps[STEPS * len(POINTS):].reshape(STEPS, len(MARKS)).cpu().to(torch.float64)
+    present = [k for k in range(len(POINTS)) if bool((s[:, k] != 0).all())]
+    parts = {}
+    for a, b in zip(present, present[1:]):
+        parts[f"{POINTS[a]} -> {POINTS[b]}"] = s[:-1, b].sub(s[:-1, a]).median().item()
+    parts[f"{POINTS[present[-1]]} -> next loop top"] = \
+        s[1:, 0].sub(s[:-1, present[-1]]).median().item()
+    if bool((marks != 0).all()):
+        for k in range(1, len(MARKS)):
+            parts[f"step: {MARKS[k - 1]} -> {MARKS[k]}"] = \
+                marks[:, k].sub(marks[:, k - 1]).median().item()
+    return parts, s[1:, 0].sub(s[:-1, 0]).median().item()
+
+
+def stamped_run(fn, planes, K, level, t, dev):
+    """Three runs of 15 never-converging steps (the last one's stamps read:
+    warm caches); returns (outputs, stamps)."""
+    from dvo_tpu_torch.ops.cuda import _build
+
+    t = dataclasses.replace(t, max_iterations=STEPS, min_update_norm=0.0, min_residual=0.0)
+    xi0 = torch.zeros(6, device=dev)
+    floats = torch.empty(6 + 2 * STEPS, device=dev)
+    ints = torch.empty(STEPS + 1, dtype=torch.int32, device=dev)
+    stamps = torch.zeros(STEPS * (len(POINTS) + len(MARKS)), dtype=torch.int64, device=dev)
+    for _ in range(3):
+        _build.check(fn(*level_args(planes, K, xi0, level, t, STEPS, floats, ints, stamps)),
+                     "gn_level (stamps)")
+        torch.cuda.synchronize()
+    if int(ints[STEPS]) != STEPS:
+        raise AssertionError(f"level {level}: {int(ints[STEPS])} steps ran, not {STEPS}")
+    out = (floats[:6], floats[6:6 + STEPS], floats[6 + STEPS:], ints[:STEPS], ints[STEPS])
+    return out, stamps, t
+
+
+def check_against_plain(cs, out, planes, K, level, t):
+    """A stamped run's outputs against ``gn_level_plain`` at chip_smoke.py's
+    tolerances.  Returns |d xi|."""
+    from dvo_tpu_torch.ops.cuda import gn_level
+
+    want = gn_level.gn_level_plain(planes, K, torch.zeros(6, device=K.device), level, t)
+    dxi = (out[0] - want[0]).abs().max().item()
+    rel = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-12)
+              for a, b in zip(out[1:3], want[1:3]))
+    if not (dxi <= cs.GN_LEVEL_XI_TOL and rel <= cs.GN_LEVEL_STAT_TOL
+            and torch.equal(out[3], want[3]) and int(out[4]) == int(want[4])):
+        raise AssertionError(f"level {level}: |d xi| {dxi:.3g}, statistics {rel:.3g}, counts "
+                             f"{out[3].tolist()} vs {want[3].tolist()}")
+    return dxi
+
+
+def sweep(cs, dev, mhz):
+    """Every candidate shape at every rig level; one line each."""
+    from dvo_tpu_torch.ops.cuda import _build, gn_level
+
+    lib = build_stamps(_build.SOURCE_DIR, "sweep")
+    rows = []
+    for rig, level, planes, K, t in rig_levels(cs, dev):
+        h, w = planes[0].shape
+        chosen = gn_level.launch_shape(h, w)
+        for blocks, threads in CANDIDATES:
+            fn = lambda *a: lib.dvo_gn_level_shaped(blocks, threads, *a)
+            try:
+                out, stamps, t15 = stamped_run(fn, planes, K, level, t, dev)
+            except RuntimeError as err:   # a shape the card refuses is no candidate
+                print(f"{rig} level {level} {h}x{w}, {blocks} x {threads}: {err}", flush=True)
+                rows.append(dict(rig=rig, level=level, shape=f"{h}x{w}", blocks=blocks,
+                                 threads=threads, refused=str(err)))
+                continue
+            dxi = check_against_plain(cs, out, planes, K, level, t15)
+            parts, step = stamp_parts(stamps)
+            rows.append(dict(rig=rig, level=level, shape=f"{h}x{w}", blocks=blocks,
+                             threads=threads, chosen=(blocks, threads) == chosen,
+                             step_cycles=step, parts=parts, dxi=dxi))
+            print(f"{rig} level {level} {h}x{w}, {blocks} x {threads}"
+                  f"{' (chosen)' if rows[-1]['chosen'] else ''}: step {step:.0f} cycles "
+                  f"(at least {step / mhz:.2f} us); "
+                  + ", ".join(f"{k} {v:.0f}" for k, v in parts.items())
+                  + f"; |d xi| vs plain {dxi:.3g}", flush=True)
+    return rows
+
+
+def level_kernel_against(tree, cs, dev):
+    """This tree's level kernel against ``tree``'s at every level of the
+    mono and RGB-D rigs, each level from the baseline's xi of the level
+    before.  Returns {level: "bitwise" or the differences}."""
+    from dvo_tpu_torch.ops.cuda import _build, gn_level
+
+    base = build_tree(tree)
+    report = {}
+    xi0 = {}
+    for rig, level, planes, K, t in rig_levels(cs, dev):
+        if rig == "kinect_mono":
+            continue
+        start = xi0.get(rig, torch.zeros(6, device=dev))
+        new = gn_level.gn_level(planes, K, start, level, t)
+        n = t.max_iterations
+        floats = torch.empty(6 + 2 * n, device=dev)
+        ints = torch.empty(n + 1, dtype=torch.int32, device=dev)
+        _build.check(base.dvo_gn_level(*level_args(planes, K, start, level, t, n, floats, ints,
+                                                   None)), "gn_level (baseline)")
+        old = (floats[:6], floats[6:6 + n], floats[6 + n:], ints[:n], ints[n])
+        h, w = planes[0].shape
+        key = f"{rig} level {level} {h}x{w}"
+        if all(torch.equal(a, b) for a, b in zip(new, old)):
+            report[key] = "bitwise"
+        else:
+            report[key] = dict(
+                dxi=(new[0] - old[0]).abs().max().item(),
+                dstats=max((a - b).abs().max().item() for a, b in zip(new[1:3], old[1:3])),
+                iterations_equal=int(new[4]) == int(old[4]),
+                counts_equal=torch.equal(new[3], old[3]))
+        print(f"gn_level {key}: {int(old[4])} steps (baseline), {int(new[4])} (this tree): "
+              f"{report[key]}", flush=True)
+        xi0[rig] = old[0]
+    return report
+
+
+def paths(cs, dev):
+    """The graphed mono and RGB-D runs of chip_smoke.py's rigs: {name: (make,
+    frames, levels, finest (h, w), max_iterations)}; ``make()`` makes a fresh
+    first state, captures its driver with an untimed chunk, and returns
+    ``run()``, which replays it over the path's frames."""
+    from dvo_tpu_torch.config import DVOConfig
+    from dvo_tpu_torch.models.odometry import monocular_init, monocular_run, raw_depth, \
+        rgbd_init, rgbd_run_raw
+
+    cfg = DVOConfig.monocular()
+    grays, masks, K, _ = cs.render_sequence(dev)
+    gen = torch.Generator().manual_seed(cs.SEED)
+    h0, w0 = cs.H >> cfg.pyramid.culls, cs.W >> cfg.pyramid.culls
+    noise = torch.randn((h0, w0), generator=gen)
+    resets = torch.clamp(0.5 + 1.5 * torch.rand((cs.N_FRAMES, h0, w0), generator=gen),
+                         max=4.0).to(dev)
+    n = cs.CHUNK
+
+    def mono():
+        start = monocular_init(grays[0], masks[0], K, cfg, device=dev, noise=noise)
+        monocular_run(start, grays[1:1 + n], masks[1:1 + n], K, cfg, resets[:n])
+        return lambda: [monocular_run(start, grays[1:1 + n], masks[1:1 + n], K, cfg,
+                                      resets[:n])[1]]
+
+    cfg_r = DVOConfig.rgbd()
+    r_grays, r_masks, r_counts, r_K = cs.render_rgbd(dev)
+    m = cs.RGBD_FRAMES
+
+    def rgbd():
+        d0, s0 = raw_depth(r_counts[0].to(dev), cs.DEPTH_SCALE)
+        start = rgbd_init(r_grays[0], r_masks[0], d0, s0, r_K, cfg_r, device=dev)
+        run = lambda: [rgbd_run_raw(start, r_grays[1:1 + m], r_masks[1:1 + m],
+                                    r_counts[1:1 + m], r_K, cfg_r,
+                                    depth_scale=cs.DEPTH_SCALE)[1]]
+        run()
+        return run
+
+    c = cfg_r.pyramid.culls
+    return dict(mono=(mono, n, cfg.pyramid.levels, (h0, w0), cfg.tracker.max_iterations),
+                rgbd=(rgbd, m, cfg_r.pyramid.levels, (cs.RH >> c, cs.RW >> c),
+                      cfg_r.tracker.max_iterations))
+
+
+def step_kernel_us(cs, dev):
+    """The step kernel's device us for one step (``device_profile``)."""
+    from dvo_tpu_torch.config import TrackerConfig
+    from dvo_tpu_torch.ops.cuda import gn, gn_level
+
+    cfg = TrackerConfig()
+    n = cfg.max_iterations
+    xi0 = torch.tensor([0.003, -0.001, 0.002, 0.0005, -0.001, 0.0], device=dev)
+    A = torch.eye(6, device=dev) * 50.0 + 1.0
+    sums = gn.pack_sums(A, torch.ones(6, device=dev), torch.tensor(2.0, device=dev),
+                        torch.tensor(900, dtype=torch.int32, device=dev))
+    state = torch.zeros(gn_level.STATE, device=dev)
+    stats = torch.zeros(2 * n, device=dev)
+    counts = torch.zeros(n, dtype=torch.int32, device=dev)
+    step = gn_level.step_launcher(sums, xi0, state, stats[:n], stats[n:], counts, cfg)
+    step(gn_level.SEED)
+    return cs.device_profile(lambda: step(1), 20, True)[1]
+
+
+def turn(cs, dev, label, lib, stamps_lib, levels, runs):
+    """One turn: this tree's kernels (``lib`` None) or another tree's."""
+    out = dict(tree=label, stamps={}, paths={})
+    for rig, level, planes, K, t in levels:
+        h, w = planes[0].shape
+        _, stamps, _ = stamped_run(stamps_lib.dvo_gn_level, planes, K, level, t, dev)
+        parts, step = stamp_parts(stamps)
+        out["stamps"][f"{rig} {h}x{w}"] = dict(step_cycles=step, parts=parts)
+    with kernels_of(lib):
+        for name, (make, frames, n_levels, base, max_it) in runs.items():
+            run = make()
+            secs = []
+            for _ in range(TIMED_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = run()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            per = cs.gn_level_per_frame(
+                run, frames, n_levels, torch.cat([r.tracking.iterations for r in res]).cpu(),
+                torch.cat([r.tracking.valid_counts for r in res]).cpu(),
+                cs.level_shapes(*base, n_levels), max_it)
+            per["ms_per_frame"] = 1e3 * statistics.median(secs) / frames
+            out["paths"][name] = per
+        out["step_kernel_us"] = step_kernel_us(cs, dev)
+    print(f"turn {label}: " + json.dumps(cs.plain_json(out)), flush=True)
+    return out
+
+
+def turns(tree, cs, dev):
+    """DIR, this tree, this tree, DIR."""
+    from dvo_tpu_torch.ops.cuda import _build
+
+    base = build_tree(tree)
+    stamps = dict(base=build_stamps(Path(tree) / "dvo_tpu_torch" / "csrc", "base"),
+                  this=build_stamps(_build.SOURCE_DIR, "this"))
+    levels = [lv for lv in rig_levels(cs, dev) if lv[0] != "kinect_mono"]
+    runs = paths(cs, dev)
+    order = (("base", base), ("this", None), ("this", None), ("base", base))
+    return [turn(cs, dev, label, lib, stamps[label], levels, runs) for label, lib in order]
 
 
 def main() -> None:
@@ -149,62 +457,24 @@ def main() -> None:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
 
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.card(), flush=True)
     if "--baseline" in sys.argv[1:]:
         tree = sys.argv[sys.argv.index("--baseline") + 1]
-        compared = level_kernel_against(tree, cs, torch.device("cuda", 0))
-        print(json.dumps({"gn_level_bitwise_vs_baseline": compared, "card": cs.card()}))
+        report = level_kernel_against(tree, cs, dev)
+        print(json.dumps({"gn_level_vs_baseline": report, "card": cs.card()}))
         return
-    from dvo_tpu_torch.config import DVOConfig
-    from dvo_tpu_torch.models.frame import build_frame_with_depth
-    from dvo_tpu_torch.models.odometry import _cull_chunk, raw_depth
-    from dvo_tpu_torch.models.tracker import level_planes
-    from dvo_tpu_torch.ops.cuda import _build
-    from dvo_tpu_torch.ops.cuda.gn import _level_step
-
-    dev = torch.device("cuda", 0)
+    if "--turns" in sys.argv[1:]:
+        tree = sys.argv[sys.argv.index("--turns") + 1]
+        print(json.dumps(cs.plain_json({"turns": turns(tree, cs, dev), "card": cs.card()})))
+        return
     mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                                 "--format=csv,noheader,nounits"], capture_output=True,
                                text=True, check=True).stdout.split()[0])
-    libs = build_with_stamps(THREADS)
-    cfg = DVOConfig.rgbd()
-    grays, masks, counts, K = cs.render_rgbd(dev)
-    cfg0, K0, (g, m, c) = _cull_chunk(cfg, K.to(dev), grays[:2].to(dev), masks[:2].to(dev),
-                                      counts[:2].to(dev))
-    depths, sigmas = raw_depth(c, cs.DEPTH_SCALE)
-    levels = cfg.pyramid.levels
-    ref = build_frame_with_depth(g[0], m[0], depths[0], sigmas[0], K0, levels, 0, 0)
-    obj = build_frame_with_depth(g[1], m[1], depths[1], sigmas[1], K0, levels, 0, 1)
-    t = dataclasses.replace(cfg0.tracker, max_iterations=STEPS)
-    print(f"{cs.card()} | maximum SM clock {mhz:.0f} MHz")
-    for threads, lib, level in ((t, lib, lv) for t, lib in zip(THREADS, libs)
-                                for lv in range(levels)):
-        planes = level_planes(obj.scenes[level], ref.scenes[level])
-        Kl = ref.scenes[level].K
-        h, w = planes[0].shape
-        xi0 = torch.zeros(6, device=dev)
-        floats = torch.empty(6 + 2 * STEPS, device=dev)
-        ints = torch.empty(STEPS + 1, dtype=torch.int32, device=dev)
-        stamps = torch.zeros((STEPS, 6), dtype=torch.int64, device=dev)
-        for _ in range(3):   # the last run's stamps are read: warm cache
-            code = lib.dvo_gn_level(
-                *(p.data_ptr() for p in planes), Kl.data_ptr(), xi0.data_ptr(),
-                floats.data_ptr(), floats[6:].data_ptr(), floats[6 + STEPS:].data_ptr(),
-                ints.data_ptr(), ints[STEPS:].data_ptr(), stamps.data_ptr(), h, w,
-                _level_step(t, level), t.min_depth, t.sigma_clamp[0], t.sigma_clamp[1],
-                int(t.compat_weight_b_only), int(level == t.crop_level), t.crop_x[0],
-                t.crop_x[1], t.crop_y[0], t.crop_y[1], STEPS, t.damping, 0.0, 0.0,
-                _build.stream_handle(dev))
-            _build.check(code, "gn_level (stamps)")
-            torch.cuda.synchronize()
-        if int(ints[STEPS]) != STEPS:
-            raise AssertionError(f"level {level}: {int(ints[STEPS])} steps ran, not {STEPS}")
-        s = stamps.cpu()
-        parts = torch.cat([s[:-1, 1:] - s[:-1, :-1], (s[1:, 0] - s[:-1, 5])[:, None]], dim=1)
-        cycles = parts.float().median(dim=0).values.tolist()
-        total = (s[1:, 0] - s[:-1, 0]).float().median().item()
-        line = ", ".join(f"{name} {cy:.0f}" for name, cy in zip(PARTS, cycles))
-        print(f"{threads} threads, level {level} {h}x{w}: cycles per step (median of {STEPS - 1}): {line}; "
-              f"step {total:.0f} cycles (at least {total / mhz:.2f} us)", flush=True)
+    print(f"maximum SM clock {mhz:.0f} MHz", flush=True)
+    rows = sweep(cs, dev, mhz)
+    print(json.dumps(cs.plain_json({"candidates": rows, "card": cs.card(), "sm_mhz": mhz})))
 
 
 if __name__ == "__main__":

@@ -638,3 +638,264 @@ def test_marched_samples_counts_what_the_inputs_need():
     cfg = MapperConfig(max_steps=40)
     # ceil(length) + 4, capped at max_steps + 4, over the pixels with a base observation
     assert int(epipolar.marched_samples(fields, cfg)) == 7 + 44 + 4 + 14
+
+
+# ----------------- gn_step.cuh on a warp: the lanes' schedule, bit for bit
+
+LANES = 32
+
+
+def solve6_lanes(H, g, damping):
+    """gn_step.cuh solve6 on a warp, lane by lane: lane r (lanes past 5 as
+    lane 5) keeps row r of L; for column j every lane forms the pivot,
+    divides its own row's entry, and the column is broadcast into every
+    lane's Lf; the forward substitution broadcasts y[k] from lane k; the
+    back substitution runs in every lane.  Returns each lane's delta."""
+    rows = [min(lane, 5) for lane in range(LANES)]
+    acc = [H[a][b] for a in range(6) for b in range(a + 1)] + list(g)
+    Lf = [[[None] * 6 for _ in range(6)] for _ in range(LANES)]
+    row = [[None] * 6 for _ in range(LANES)]
+    ok = [True] * LANES
+    for j in range(6):
+        for lane, r in enumerate(rows):
+            base = r * (r + 1) // 2
+            s = acc[j * (j + 1) // 2 + j] + f32(damping)
+            for k in range(j):
+                s = s - Lf[lane][j][k] * Lf[lane][j][k]
+            ok[lane] = ok[lane] and bool(s > 0)
+            d = torch.sqrt(s)
+            v = acc[base + j]
+            for k in range(j):
+                v = v - row[lane][k] * Lf[lane][j][k]
+            row[lane][j] = d if r == j else v / d
+        for lane in range(LANES):             # __shfl_sync(row[j], i) for i >= j
+            for i in range(j, 6):
+                Lf[lane][i][j] = row[i][j]
+    v = [acc[21 + r] for r in rows]
+    y = [[None] * 6 for _ in range(LANES)]
+    for k in range(6):
+        q = [v[lane] / Lf[lane][k][k] for lane in range(LANES)]
+        for lane in range(LANES):
+            y[lane][k] = q[k]                 # __shfl_sync(q, k)
+            v[lane] = v[lane] - row[lane][k] * y[lane][k]
+    out = []
+    for lane in range(LANES):
+        delta = [None] * 6
+        for i in range(5, -1, -1):
+            x = y[lane][i]
+            for k in range(i + 1, 6):
+                x = x - Lf[lane][k][i] * delta[k]
+            delta[i] = x / Lf[lane][i][i]
+        out.append(delta if ok[lane] else [f32(float("nan"))] * 6)
+    return out
+
+
+def gn_step_lanes(H, g, rsum, count, xi, cfg):
+    """gn_step.cuh gn_step on a warp: every lane's solve, then the compose's
+    two exponentials in one pass (lane 1 takes exp(delta), every other lane
+    exp(xi)), read back from lanes 0 and 1.  Returns each lane's result as
+    ``gn_step_scalar`` gives it."""
+    H = [[f32(H[i][j]) for j in range(6)] for i in range(6)]
+    g, xi = [f32(v) for v in g], [f32(v) for v in xi]
+    deltas = solve6_lanes(H, g, cfg.damping)
+    if count <= 0:
+        deltas = [[f32(0.0)] * 6 for _ in range(LANES)]
+    exps = [se3_exp_scalar(deltas[lane] if lane == 1 else xi) for lane in range(LANES)]
+    (R0, t0), (R1, t1) = exps[0], exps[1]
+    out = []
+    for lane in range(LANES):
+        delta = deltas[lane]
+        R = _matmul(R0, R1)
+        t = [a + b for a, b in zip(_matvec(R0, t1), t0)]
+        new_xi = se3_log_scalar(R, t)
+        x = new_xi if all(bool(torch.isfinite(v)) for v in new_xi) else xi
+        mean_res = f32(rsum) / f32(count) if count > 0 else f32(-1.0)
+        sq = f32(0.0)
+        for d in delta:
+            sq = sq + d * d
+        upd = torch.sqrt(sq)
+        converged = bool(upd < cfg.min_update_norm) or bool(mean_res < cfg.min_residual) \
+            or count == 0
+        out.append(([v.item() for v in x], mean_res.item(), upd.item(), converged,
+                    [d.item() for d in delta]))
+    return out
+
+
+WARP_CASES = dict(EPILOGUE_CASES, not_pd=(None, 1.0, [0.01, 0.0, -0.02, 0.001, 0.0, 0.002], 5),
+                  zero_count=(10.0, 1.0, [0.01, 0.0, -0.02, 0.001, 0.0, 0.002], 0))
+
+
+@pytest.mark.parametrize("case", list(WARP_CASES))
+def test_warp_step_is_the_one_thread_step_bit_for_bit(rng, case):
+    """The warp's schedule (``solve6_lanes``, ``gn_step_lanes``) gives
+    every lane the one-thread transcription's delta, twist, statistics and
+    flag, bit for bit (float32; NaN where it gives NaN): no element's
+    arithmetic changes order."""
+    h_scale, g_scale, xi, count = WARP_CASES[case]
+    H, g = _normal_equations(rng, 1.0 if h_scale is None else h_scale)
+    if h_scale is None:
+        H = -np.eye(6, dtype=np.float32)
+    g = (g * np.float32(g_scale)).astype(np.float32)
+    cfg = config_from_reference(TrackerConfig(min_residual=0.0))
+    want = gn_step_scalar(H, g, 9.0, count, xi, cfg)
+    Hf = [[f32(H[i][j]) for j in range(6)] for i in range(6)]
+    want_delta = np.asarray([v.item() for v in solve6_scalar(Hf, [f32(v) for v in g],
+                                                             cfg.damping)], np.float32)
+    for delta in solve6_lanes(Hf, [f32(v) for v in g], cfg.damping):
+        np.testing.assert_array_equal(np.asarray([v.item() for v in delta], np.float32),
+                                      want_delta)
+    for got in gn_step_lanes(H, g, 9.0, count, xi, cfg):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(a, np.float32), np.asarray(b, np.float32))
+    if case == "not_pd":
+        assert np.isnan(want_delta).all()
+
+
+# --------------------------- the level kernel's launch shape and sum order
+
+def _level_shapes(base, levels):
+    h, w = base
+    return [((h + (1 << k) - 1) >> k, (w + (1 << k) - 1) >> k) for k in range(levels)]
+
+
+@pytest.mark.parametrize("rig,base,levels,want", [
+    # DVOConfig.monocular(): 640x480 culled twice, 3 levels
+    ("monocular", (120, 160), 3, [(8, 512)] * 3),
+    # DVOConfig.rgbd(): 512x424 culled once, 4 levels
+    ("rgbd", (212, 256), 4, [(16, 1024), (8, 512), (8, 512), (8, 512)]),
+    # Kinect mono (chip_smoke.py): the 512x424 depth view culled twice, 3 levels
+    ("kinect_mono", (106, 128), 3, [(8, 512)] * 3),
+])
+def test_launch_shape_at_every_level_of_the_rigs(rig, base, levels, want):
+    """``gn_level.launch_shape`` (the mirror of ``csrc/gn_level.cu``'s
+    ``level_shape``, held against its C entries on the card) at every
+    level, finest first: a cluster of 8 blocks of 512 threads up to 32768
+    pixels, of 16 blocks of 1024 above."""
+    from dvo_tpu_torch.config import DVOConfig
+
+    cfg = {"monocular": DVOConfig.monocular(), "rgbd": DVOConfig.rgbd(),
+           "kinect_mono": DVOConfig.monocular()}[rig]
+    assert cfg.pyramid.levels == levels
+    shapes = _level_shapes(base, levels)
+    got = [gn_level.launch_shape(h, w) for h, w in shapes]
+    assert got == want
+    for (h, w), shape in zip(shapes, got):
+        assert shape == ((8, 512) if h * w <= 32768 else (16, 1024))
+
+
+def kernel_sums(J, r, weight, valid, weight_b_only, blocks, threads):
+    """The level kernel's 29 sums over per-pixel terms, in its order
+    (float32, NumPy): thread ``rank * threads + tid`` adds the terms of its
+    pixels (a stride of blocks * threads) in index order; each warp
+    reduce-scatters its lanes' 32 sums (``fold`` with O = 16, 8, 4, 2, 1:
+    a lane keeps the half its bit O selects and adds its partner's copy);
+    a block adds its warps' sums in order from 0, the cluster its blocks in
+    rank order from 0."""
+    f = np.float32
+    n = J.shape[0]
+    terms = np.zeros((n, 32), f)
+    ja = J if weight_b_only else J * weight[:, None]
+    for a in range(6):
+        for b in range(a + 1):
+            terms[:, a * (a + 1) // 2 + b] = ja[:, a] * J[:, b]
+        terms[:, 21 + a] = J[:, a] * (r * weight)
+    terms[:, 27] = r * r
+    terms[:, 28] = 1.0
+    terms[~valid] = 0.0
+    stride = blocks * threads
+    passes = -(-n // stride)
+    padded = np.zeros((passes * stride, 32), f)
+    padded[:n] = terms
+    t = np.zeros((stride, 32), f)
+    for k in range(passes):                       # a thread's pixels in index order
+        t = t + padded[k * stride:(k + 1) * stride]
+    t = t.reshape(blocks, threads // 32, 32, 32)  # (block, warp, lane, value)
+    lanes = np.arange(32)
+    for O in (16, 8, 4, 2, 1):
+        upper = ((lanes & O) != 0)[:, None]
+        send = np.where(upper, t[..., :O], t[..., O:2 * O])
+        keep = np.where(upper, t[..., O:2 * O], t[..., :O])
+        t = keep + send[:, :, lanes ^ O, :]
+    warp_sums = t[..., 0]                         # lane l: the warp's sum of value l
+    block = np.zeros((blocks, 32), f)
+    for w in range(threads // 32):
+        block = block + warp_sums[:, w]
+    total = np.zeros(32, f)
+    for b in range(blocks):
+        total = total + block[b]
+    return total[:gn.N_SUMS]
+
+
+@pytest.mark.parametrize("hw", [(27, 32), (60, 80), (106, 128), (212, 256)])
+@pytest.mark.parametrize("weight_b_only", [False, True])
+def test_kernel_sum_order_matches_the_plain_sums(rng, hw, weight_b_only):
+    """``kernel_sums`` at the level's launch shape, over
+    ``gn.pixel_terms_plain``'s per-pixel terms, against ``gn_terms_plain``'s
+    sums at ``chip_smoke.GN_REL_TOL`` of each part's largest entry (the two
+    add the same products in different orders), the count exact; and the
+    count against ``dvo_tpu``'s."""
+    from chip_smoke import GN_REL_TOL
+
+    h, w = hw
+    obj, ref = _frames(rng, h, w, 1, np.array([0.006, -0.002, 0.004, 0.001, -0.001, 0.002],
+                                              np.float32))
+    to, tr = _port(obj).scenes[0], _port(ref).scenes[0]
+    cfg = config_from_reference(TrackerConfig(compat_weight_b_only=weight_b_only))
+    T = tlie.se3_exp(-torch.tensor([0.001, 0.001, 0.0, 0.0005, 0.0, 0.0]))
+    args = (*ttracker.level_planes(to, tr), tr.K, T, 1, cfg)
+    J, r, weight, valid = (x.reshape(h * w, -1).squeeze(-1).numpy()
+                           for x in gn.pixel_terms_plain(*args))
+    got = kernel_sums(J, r, weight, valid, weight_b_only, *gn_level.launch_shape(h, w))
+    want = gn.pack_sums(*gn.gn_terms_plain(*args)).numpy()
+    assert got[28] == want[28] == valid.sum() > 0.5 * h * w
+    for part in (slice(0, 21), slice(21, 27), slice(27, 28)):
+        scale = np.abs(want[part]).max()
+        assert np.abs(got[part] - want[part]).max() <= GN_REL_TOL * scale
+
+
+# ------------------------------------------ the count's float32 limit
+
+def _never_allocated(h, w):
+    """The nine planes at h x w as stride-0 views of one element each."""
+    f = torch.zeros(1).expand(h, w)
+    b = torch.zeros(1, dtype=torch.bool).expand(h, w)
+    return (f, b, f, f, f, b, f, f, b)
+
+
+def _wrapper_call(name, planes, full_shape=None):
+    cfg = config_from_reference(TrackerConfig())
+    K = torch.eye(3)
+    if name == "terms_launcher":
+        return gn.terms_launcher(planes, K, 0, cfg, full_shape=full_shape)
+    if name == "gn_terms":
+        return gn.gn_terms(*planes, K, torch.eye(4), 0, cfg, full_shape=full_shape)
+    return gn_level.gn_level(planes, K, torch.zeros(6), 0, cfg)
+
+
+class _NoLibrary:
+    def __getattr__(self, name):
+        raise AssertionError(f"{name}: the wrapper reached the kernel library")
+
+
+@pytest.mark.parametrize("route", ["plain", "cuda"])
+@pytest.mark.parametrize("name", ["terms_launcher", "gn_terms", "gn_level"])
+def test_gn_wrappers_refuse_the_float32_count_limit(name, route, monkeypatch):
+    """At 2**24 pixels (4096 x 4096, planes that are never allocated) each
+    GN wrapper raises ``gn.check_pixels``' ValueError before it reaches the
+    library or the plain version; on the card's route, one pixel fewer
+    passes the guard and is refused by the next check (the planes are not
+    contiguous), not by it."""
+    if route == "cuda":
+        for mod in (gn, gn_level):
+            monkeypatch.setattr(mod, "resolve_device", lambda _: "cuda")
+        monkeypatch.setattr(_build, "library", _NoLibrary)
+        monkeypatch.setattr(_build, "stream_handle", lambda _: 0)
+    assert 4096 * 4096 == gn.MAX_PIXELS
+    with pytest.raises(ValueError, match="the count is summed in float32"):
+        _wrapper_call(name, _never_allocated(4096, 4096))
+    if name != "gn_level":   # a row block of a full image at the limit
+        with pytest.raises(ValueError, match="the count is summed in float32"):
+            _wrapper_call(name, _never_allocated(16, 4096), full_shape=(4096, 4096))
+    if route == "cuda":
+        with pytest.raises(ValueError, match="not contiguous"):
+            _wrapper_call(name, _never_allocated(4096, 4095))

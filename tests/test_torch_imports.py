@@ -50,6 +50,31 @@ def test_port_imports_without_jax():
     assert int(out.stdout.strip()) >= 42
 
 
+# ROADMAP's "not to port": a one-hot-matmul sampler for the TPU's matrix unit.
+NOT_TO_PORT = {"bilinear_dense_mxu"}
+
+
+@pytest.mark.parametrize("package", ["models", "ops"])
+def test_package_exports_dvo_tpu_names(package):
+    """Every name of ``dvo_tpu.<package>.__all__`` but those not to port is
+    exported by ``dvo_tpu_torch.<package>`` (a fresh interpreter, ``jax``
+    and ``dvo_tpu`` unimportable), and importing them builds no kernel."""
+    import importlib
+
+    want = sorted(set(importlib.import_module(f"dvo_tpu.{package}").__all__) - NOT_TO_PORT)
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['dvo_tpu'] = None\n"
+        f"from dvo_tpu_torch.{package} import {', '.join(want)}\n"
+        f"import dvo_tpu_torch.{package} as m\n"
+        f"assert sorted(m.__all__) == {want!r}, m.__all__\n"
+        "from dvo_tpu_torch.ops.cuda import _build\n"
+        "assert _build._library is None\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def _port_files():
     return sorted((REPO / "dvo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 

@@ -43,6 +43,13 @@ def test_cull_image_and_intrinsic(rng, times):
                                   np.asarray(jimage.cull_intrinsic(jnp.asarray(K), times)))
 
 
+@pytest.mark.parametrize("times", [1, 2])
+def test_cull_mask(rng, times):
+    mask = rng.random((32, 48)) > 0.3
+    np.testing.assert_array_equal(timage.cull_mask(_t(mask), times).numpy(),
+                                  np.asarray(jimage.cull_mask(jnp.asarray(mask), times)))
+
+
 def test_gradients_with_mask_holes(rng):
     img = smooth_image(rng, 20, 24)
     mask = rng.random((20, 24)) > 0.2

@@ -85,6 +85,20 @@ def test_gn_terms_plain_matches(rng, level_index, cfg):
     _assert_terms_close(t, j)
 
 
+@pytest.mark.parametrize("level_index", [0, 1])
+def test_gn_normal_equations_matches(rng, level_index):
+    """``gn_normal_equations`` (a whole level's linearisation from two
+    ``Scene``s) against ``dvo_tpu``'s, at the twin tolerance of
+    ``_assert_terms_close``."""
+    obj, ref = _frames(rng, 48, 64, 2, XI, holes=0.05)
+    j = jtracker.gn_normal_equations(obj.scenes[level_index], ref.scenes[level_index],
+                                     jnp.asarray(XI_EVAL), level_index, TrackerConfig())
+    t = ttracker.gn_normal_equations(_port(obj).scenes[level_index],
+                                     _port(ref).scenes[level_index], torch.tensor(XI_EVAL),
+                                     level_index, config_from_reference(TrackerConfig()))
+    _assert_terms_close(t, j)
+
+
 def test_gn_terms_plain_at_mask_borders(rng):
     """Half the reference pixels invalid: the cyclic corner fill and the
     float gmask test decide most samples."""
