@@ -9,7 +9,9 @@ Phases, one line each (or a few):
   1. device   — the card's name and power limit (nvidia-smi); TF32 off.
   2. build    — compile ``dvo_tpu_torch/csrc/*.cu`` with nvcc (first use).
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                on inputs from a real run at the paths' shapes: the GN step
+                on inputs from a real run at the paths' shapes (the mono
+                states come from runs on the CPU with the plain versions,
+                moved to the card: no kernel under test made them): the GN step
                 (``gn``) and the GN level loop (``gn_level``: its launch
                 shape from the kernel's C entries against
                 ``gn_level.launch_shape``; xi, statistics,
@@ -25,7 +27,12 @@ Phases, one line each (or a few):
                 against the plain version and against fields + the fields
                 entry), and once more on a state early in the run (ring not
                 full, some pixels aged out); the same kernel built with 4, 8,
-                16 and 32 lanes a pixel, one line each; regularize; the
+                16 and 32 lanes a pixel, one line each; regularize (its
+                launch from the C entries against ``regularize.LAUNCH``,
+                ``torch.equal`` to the plain version, then every launch of
+                ``tools/regularize_sweep`` held bitwise and timed, at
+                120x160, 106x128 and on synthetic maps at 212x256 and
+                37x53, beside the launch floor); the
                 regularize-and-cull launch (``torch.equal`` on every level of
                 both pyramids, timed against the three launches it replaces);
                 and the frame build (held equal with ``torch.equal``) for the
@@ -46,6 +53,15 @@ Phases, one line each (or a few):
                 times from ``torch.profiler``; each kernel's bound from its
                 ``work()`` on these inputs, and its launch floor: an empty
                 launch and a copy of its bytes (``csrc/floor.cu``).
+     stable   — how far float noise steers a monocular rig (ROADMAP queue
+                C, v): the mono path on ``render`` + the first keyframe at
+                frame 0's true depth (STABLE_RIG) and on ``render_planes``,
+                each run with the shipped ``gn_level`` launch shapes, with
+                ``gn_level.cu`` built with every shape at the shipped ones
+                (bitwise equal) and at another shape on every level (8 <-> 16
+                blocks): pose difference and decisions over the first
+                STABLE_FRAMES frames (held for STABLE_RIG) and over the run
+                (printed).
   4. main     — ``monocular_init`` + ``monocular_run`` with
                 ``DVOConfig.monocular()`` on 48 synthetic 640x480 uint8
                 frames (chunks of 24), through the graphed step driver
@@ -68,9 +84,17 @@ Phases, one line each (or a few):
                 keyframe profiled on both.  Then the first 24 frames with the
                 stepwise GN loop, twice, and with the level kernel again (A,
                 B, B, A), as for the routes.
-  5. cpu      — the first 8 frames again on the CPU (plain versions, same
-                bootstrap noise and reset planes); poses and keyframe flags
-                must agree with the CUDA run.
+  5. cpu      — the CPU (plain versions, same reset planes) against the
+                card: the stable rig's first 8 frames as one trajectory
+                (poses within POSE_TOL, keyframe flags equal; STABLE_FRAMES
+                printed); the main path's noise-bootstrapped rig frame by
+                frame (``tools/step_gate``: the card's state before each of
+                the 48 frames, from the eager step loop, copied to the CPU and
+                stepped there with the card's tracking, and with its own where
+                the card's GN converged at every level; ``T_world`` within
+                POSE_TOL, the decision equal, the reference's depth and sigma
+                within MAP_VALUE_TOL on MAP_SHARE of the pixels), its whole
+                trajectory against the CPU's printed.
   6. rgbd     — ``rgbd_init`` + ``rgbd_run_raw`` with ``DVOConfig.rgbd()``
                 on 64 synthetic 512x424 frames (uint8 gray, uint16 depth
                 counts with holes) in one chunk, graphed, against the eager
@@ -86,7 +110,8 @@ Phases, one line each (or a few):
                 first: none on the RGB-D path and none over 24 mono frames
                 (the keyframe decision stays on the device); one capture per
                 run, counted apart with the syncs of the chunk that captured.
-     graphs   — one ``monocular_step`` (no BA) and one ``rgbd_step`` captured
+     graphs   — one ``monocular_step`` (no BA; on the stable rig, from its
+                first promotion past 24 frames) and one ``rgbd_step`` captured
                 in a CUDA graph (capture raises on a host sync) and replayed
                 on six frames each, every replay equal bitwise to the eager
                 step on the same inputs; the launch counters count the
@@ -168,7 +193,11 @@ Phases, one line each (or a few):
                 must odometrise every frame of the directory.
  10. ba       — the mono path of phase 4 with ``cfg.ba`` on (window 4, 5
                 iterations: the CLI's defaults): poses, keyframes and
-                ``ba_cost`` of the first 24 frames against the CPU's; every
+                ``ba_cost`` of the stable rig's first 24 frames against the
+                CPU's (the noise-bootstrapped rig's printed), and each of
+                the noise-bootstrapped rig's steps that runs a
+                ``bundle_adjust`` against the same step on the CPU from the
+                card's state (``tools/step_gate`` at BA_SOLVE_TOL); every
                 promotion with a full window has a finite ``ba_cost`` >= 0
                 and ``ba_window_xi`` is (4, 6); the launches are exactly the
                 mono path's; one host sync per frame (the decision and the
@@ -238,6 +267,20 @@ KINECT_CHUNK = 3        # 7 steps: two chunks and a one-frame tail
 KINECT_CPU_FRAMES = 5   # the Kinect CLI on the CPU: one chunk and a one-frame tail
 KINECT_WARM = 8         # frames per run while the Kinect-mono ring fills
 EARLY_FRAMES = 6        # the mono run whose ring is not full yet (2 promotions)
+# The stable monocular rig (ROADMAP queue C, v): render's frames, the first
+# keyframe at frame 0's true depth (monocular_init_with_depth, as the
+# monodepth phase starts).  No monocular rig is stable for long: the depth
+# update's gates and BA's are discrete, and a pixel that an ulp flips (a
+# fusion that becomes a reset) grows over the frames after it.  Rehearsed
+# on the CPU, every level's xi moved by 2e-7 relative: this rig first left
+# POSE_TOL at frame 14-25 (six noise draws), render_planes' at frame 11-19 or
+# not within 32 (six draws), the noise-bootstrapped rig at frame 9 (one).  So
+# the whole-trajectory gates at POSE_TOL hold its first STABLE_FRAMES frames
+# (the monodepth phase's run), and the per-frame gates
+# (dvo_tpu_torch/tools/step_gate.py) hold every frame of the main path.
+STABLE_RIG = "render+depth"
+STABLE_SIGMA = 0.1      # the first keyframe's depth sigma [m]
+STABLE_FRAMES = MONO_DEPTH_FRAMES
 
 # Tolerances of a kernel against its plain version on the card.  Both are
 # built to round the same way per pixel (no FMA contraction, IEEE division
@@ -311,6 +354,9 @@ PG_CLI_TOL = 5e-3
 PG_CLI_ALL_TOL = 2e-2        # over all frames (5.6e-3 measured)
 EXTRA_FRAMES = 8             # frames of the --trace/--gallery/--stream runs
 DECODE_THREADS = (8, 4, 2, 1)  # PIL decode threads the cli phase compares
+# The regulariser's sweep also on maps of these shapes (regularize_sweep.maps):
+# one no path gives it, and one with partial warps and blocks.
+REGULARIZE_SHAPES = ((212, 256), (37, 53))
 
 
 def phase(name: str, msg: str) -> None:
@@ -847,12 +893,12 @@ def check_gn_level(obj_scenes, ref_scenes, cfg, times, tag=""):
 
 def compare_maps(name, got, want):
     """Share of pixels within MAP_VALUE_TOL and the max abs error."""
-    got, want = got.double(), want.double()
-    err = (got - want).abs()
-    share = (err <= MAP_VALUE_TOL * (1.0 + want.abs())).double().mean().item()
+    from dvo_tpu_torch.tools.step_gate import map_agreement
+
+    share, err = map_agreement(got, want, MAP_VALUE_TOL)
     if share < MAP_SHARE:
         raise AssertionError(f"{name}: only {share:.4f} of pixels within tolerance")
-    return err.max().item(), share
+    return err, share
 
 
 def depth_update_args(state, gray, mask, K, cfg):
@@ -1015,18 +1061,21 @@ def check_regularize_cull(label, ref, depth, sigma, age, cfg):
     return out
 
 
-def kernel_phase(state, grays, masks, K, cfg, tag=""):
+def kernel_phase(state, grays, masks, K, cfg, tag="", sweeps=None):
     """Each kernel vs its plain version at a monocular path's shapes, on the
     state a real run left behind (full ring) and the next frame: GN at every
     level, both epipolar entries, regularize, the regularize-and-cull launch
     and the four frame builds (tracking frame, a frame with depth, the
-    depth/sigma pair and one plane).  ``tag`` prefixes the labels.  Returns (one entry per kernel,
+    depth/sigma pair and one plane).  ``tag`` prefixes the labels; the
+    regulariser's sweep rows (``tools/regularize_sweep``) on the state's
+    maps go to the list ``sweeps``, if given.  Returns (one entry per kernel,
     with its times by shape; the frame builds' (error, ms, plain ms) by
     label)."""
     from dvo_tpu_torch import lie
     from dvo_tpu_torch.models.frame import build_tracking_frame, normalize_gray, with_pose
     from dvo_tpu_torch.models.tracker import level_planes, track
-    from dvo_tpu_torch.ops.cuda import framebuild, gn, gn_level, regularize
+    from dvo_tpu_torch.ops.cuda import _build, framebuild, gn, gn_level, regularize
+    from dvo_tpu_torch.tools import framebuild_floor, regularize_sweep
 
     frame = build_tracking_frame(grays, masks, K, cfg.pyramid.levels, 0, state.frame_count)
     tr = track(frame, state.ref, cfg.tracker)
@@ -1085,24 +1134,47 @@ def kernel_phase(state, grays, masks, K, cfg, tag=""):
                                             "epipolar segment with a depth filter", **entry,
                             times_by_shape={tag + shape: (entry["ms"], entry["plain_ms"])}))
 
-    # --- regularize ---
+    # --- regularize: the shipped launch (its C entries against
+    # regularize.LAUNCH), bitwise against the plain version, then every
+    # launch of the sweep on the same maps ---
+    lib = _build.library()
+    launch = (regularize.KINDS[lib.dvo_regularize_kind()], lib.dvo_regularize_block_rows(),
+              lib.dvo_regularize_thread_rows())
+    if launch != regularize.LAUNCH:
+        raise AssertionError(f"regularize: the kernel's launch {launch}, LAUNCH "
+                             f"{regularize.LAUNCH}")
     got = regularize.regularize(base.depth, base.sigma, cfg.mapper)
+    again = regularize.regularize(base.depth, base.sigma, cfg.mapper)
     want = regularize.regularize_plain(base.depth, base.sigma, cfg.mapper)
     torch.cuda.synchronize()
-    err, share = compare_maps("regularize", got, want)
+    if not torch.equal(got, want) or not torch.equal(got, again):
+        raise AssertionError(f"{tag}regularize {shape}: {int((got != want).sum())} pixels "
+                             "differ from the plain version, or a repeat differs")
+    err = (got - want).abs().max().item()
     ms = timed(lambda: regularize.regularize(base.depth, base.sigma, cfg.mapper))
     plain_ms = timed(lambda: regularize.regularize_plain(base.depth, base.sigma, cfg.mapper))
     ops, us = device_profile(lambda: regularize.regularize(base.depth, base.sigma, cfg.mapper),
                              20, True)
-    phase("kernels", f"{tag}regularize {shape}: share {share:.5f}, max err {err:.3g}, "
-                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device {us:.2f} us in "
-                     f"{ops:g} launches")
+    nbytes, flops = regularize.work(base.shape)
+    fl = framebuild_floor.floor_us(nbytes, device_profile)
+    (gx, gy), (bx, by) = regularize.launch_grid(*base.shape)
+    phase("kernels", f"{tag}regularize {shape}: launch {regularize_sweep.label(launch)} ({gx} x "
+                     f"{gy} blocks of {bx} x {by}; the C entries equal LAUNCH), bitwise equal to "
+                     f"the plain version, repeat bitwise, kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms, device {us:.2f} us in {ops:g} launches; empty launch "
+                     f"{fl['empty_us']:.2f} us, a copy of its {fl['copy_bytes']} B "
+                     f"{fl['copy_us']:.2f} us, bound {_build.bound_us(nbytes, flops)[0]:.3f} us")
+    if sweeps is not None:
+        sweeps += regularize_sweep.sweep({tag + shape: (base.depth, base.sigma)}, cfg.mapper,
+                                         sys.modules[__name__],
+                                         say=lambda line: phase("kernels", line))
     results.append(with_bound(
         dict(name="regularize", route="cuda", source="dvo_tpu_torch/csrc/regularize.cu",
              replaces="dvo_tpu/ops/pallas/regularize.py:29", max_abs_err=err, ms=ms,
-             plain_ms=plain_ms, device_us=us, device_launches=ops,
+             plain_ms=plain_ms, device_us=us, device_launches=ops, bit_identical=True,
+             launch=regularize_sweep.label(launch), blocks=gx * gy, threads=bx * by,
              times_by_shape={tag + shape: (ms, plain_ms)}),
-        *regularize.work(base.shape)))
+        nbytes, flops))
 
     # --- regularize and cull in one launch (the mapper's reference rebuild) ---
     rc = check_regularize_cull(f"{tag}{shape}x{cfg.pyramid.levels}", state.ref, base.depth,
@@ -1202,33 +1274,117 @@ def plane_rig_phase(dev, card_line, cfg, resets, kernels, fb, old_census):
                 ms_per_frame=secs * 1e3 / n), args
 
 
-def kinect_mono_kernel_phase(dev, grays, masks, counts, K, cfg):
+def kinect_mono_kernel_phase(dev, grays, masks, counts, K, cfg, sweeps=None):
     """The kernels at the shapes of ``--format kinect --mode mono``: the
     512x424 depth camera culled twice by ``DVOConfig.monocular()``, a
     106x128 base with 3 levels.  ``monocular_init_with_depth`` on the RGB-D
-    frames, run KINECT_WARM frames at a time until the keyframe ring is
-    full, then ``kernel_phase`` on the next frame."""
+    frames, run on the CPU (the plain versions: a state the kernels under
+    test did not make) KINECT_WARM frames at a time until the keyframe ring
+    is full, moved to the card, then ``kernel_phase`` on the next frame."""
     from dvo_tpu_torch.models.odometry import (
         _cull_chunk,
         monocular_init_with_depth,
         monocular_run,
         raw_depth,
     )
+    from dvo_tpu_torch.tools.step_gate import on_device
 
-    K = K.to(dev)
-    d0, s0 = raw_depth(counts[0].to(dev), DEPTH_SCALE)
-    state = monocular_init_with_depth(grays[0].to(dev), masks[0].to(dev), d0, s0, K, cfg)
+    d0, s0 = raw_depth(counts[0].cpu(), DEPTH_SCALE)
+    state = monocular_init_with_depth(grays[0].cpu(), masks[0].cpu(), d0, s0, K.cpu(), cfg,
+                                      device="cpu")
     i = 1
     while state.history.count < state.history.capacity:
         if i + KINECT_WARM >= grays.shape[0]:
             raise AssertionError(f"kinect mono: the ring holds {int(state.history.count)} "
                                  f"keyframes after {i - 1} frames")
         sl = slice(i, i + KINECT_WARM)
-        state, _ = monocular_run(state, grays[sl].to(dev), masks[sl].to(dev), K, cfg)
+        state, _ = monocular_run(state, grays[sl].cpu(), masks[sl].cpu(), K.cpu(), cfg)
         i += KINECT_WARM
-    cfg0, K0, (gray, mask) = _cull_chunk(cfg, K, grays[i].to(dev), masks[i].to(dev))
-    phase("kernels", f"kinect mono: the ring full after {i - 1} frames")
-    return kernel_phase(state, gray, mask, K0, cfg0, tag="kinect_mono ")
+    state = on_device(state, dev)
+    cfg0, K0, (gray, mask) = _cull_chunk(cfg, K.to(dev), grays[i].to(dev), masks[i].to(dev))
+    phase("kernels", f"kinect mono: the ring full after {i - 1} frames on the CPU")
+    return kernel_phase(state, gray, mask, K0, cfg0, tag="kinect_mono ", sweeps=sweeps)
+
+
+def stable_start(cfg, grays, masks, K, depth, device):
+    """The stable rig's first state: frame 0 with its true depth, sigma
+    STABLE_SIGMA (``monocular_init_with_depth``)."""
+    from dvo_tpu_torch.models.odometry import monocular_init_with_depth
+
+    return monocular_init_with_depth(grays[0], masks[0], depth,
+                                     torch.full_like(depth, STABLE_SIGMA), K, cfg, device=device)
+
+
+def decisions(kf) -> str:
+    """A run's keyframe decisions, one character a frame (K: promotion)."""
+    return "".join("K" if k else "." for k in kf.tolist())
+
+
+def stable_rig_phase(dev, card_line, cfg, grays, masks, K, depth, resets):
+    """How far float noise steers a monocular rig (ROADMAP queue C, v): each
+    candidate's whole mono path (``monocular_run``, graphed, one chunk) with
+    the shipped ``gn_level`` launch shapes, with ``gn_level.cu`` built with
+    every shape at the shipped ones (must be bitwise equal: the build adds
+    shapes, no arithmetic), and at another shape on every level
+    (``gn_level_stamps.other_shape``: 8 <-> 16 blocks).  The candidates:
+    ``render`` + ``monocular_init_with_depth`` (``STABLE_RIG``) and
+    ``render_planes``.  Prints the largest pose difference and both runs'
+    decisions over the first STABLE_FRAMES frames and over the whole run;
+    STABLE_RIG must keep its decisions and stay within POSE_TOL over the
+    first STABLE_FRAMES.  Returns the readings."""
+    from dvo_tpu_torch.models.odometry import monocular_init_with_depth, monocular_run
+    from dvo_tpu_torch.ops.cuda import gn_level
+    from dvo_tpu_torch.tools import gn_level_stamps
+
+    shapes_lib = gn_level_stamps.build_shapes()
+    p_grays, p_masks, p_K, p_depth = render_planes(dev, N_FRAMES)
+    rigs = {
+        STABLE_RIG: (lambda: stable_start(cfg, grays, masks, K, depth, dev), grays, masks, K),
+        "planes": (lambda: monocular_init_with_depth(
+            p_grays[0], p_masks[0], p_depth, torch.full_like(p_depth, PLANE_SIGMA), p_K, cfg,
+            device=dev), p_grays, p_masks, p_K),
+    }
+    runs = {"shipped": contextlib.nullcontext,
+            "shipped, every-shape build": lambda: gn_level_stamps.shaped_levels(
+                shapes_lib, gn_level.launch_shape),
+            "other shapes": lambda: gn_level_stamps.shaped_levels(
+                shapes_lib, gn_level_stamps.other_shape)}
+    out = {}
+    for rig, (start, g, m, K_r) in rigs.items():
+        n = g.shape[0] - 1
+        got = {}
+        for name, ctx in runs.items():
+            with ctx():   # a fresh first state: its driver is captured here
+                _, res = monocular_run(start(), g[1:], m[1:], K_r, cfg, resets[:n].to(dev))
+            got[name] = (res.T_world, res.is_keyframe)
+        T0, kf0 = got["shipped"]
+        if not all(torch.equal(a, b) for a, b in zip(got["shipped"],
+                                                     got["shipped, every-shape build"])):
+            raise AssertionError(f"stable {rig}: gn_level.cu built with every shape gives "
+                                 "other bits at the shipped shapes")
+        T1, kf1 = got["other shapes"]
+        per_frame = (T0 - T1).abs().flatten(1).max(dim=1).values
+        past = torch.nonzero(per_frame > POSE_TOL).flatten().tolist()
+        k = STABLE_FRAMES
+        row = dict(frames=n, max_dT_first=per_frame[:k].max().item(),
+                   keyframes_equal_first=bool(torch.equal(kf0[:k], kf1[:k])),
+                   max_dT=per_frame.max().item(), keyframes_equal=bool(torch.equal(kf0, kf1)),
+                   first_frame_past_pose_tol=past[0] if past else None,
+                   decisions_shipped=decisions(kf0), decisions_other=decisions(kf1))
+        out[rig] = row
+        phase("stable", f"{rig}: shipped gn_level shapes vs another shape at every level "
+                        f"(8 <-> 16 blocks): max |dT| {row['max_dT_first']:.3g} over the first "
+                        f"{k} frames (tol {POSE_TOL}), decisions equal {row['keyframes_equal_first']}"
+                        f"; over all {n}: {row['max_dT']:.3g}, first frame past the tolerance "
+                        f"{row['first_frame_past_pose_tol']}, decisions equal "
+                        f"{row['keyframes_equal']}: shipped {row['decisions_shipped']}, other "
+                        f"{row['decisions_other']}; the every-shape build bitwise equal at the "
+                        f"shipped shapes on {card_line}")
+    chosen = out[STABLE_RIG]
+    if not chosen["keyframes_equal_first"] or not chosen["max_dT_first"] <= POSE_TOL:
+        raise AssertionError(f"stable: the {STABLE_RIG} rig follows the launch shapes within "
+                             f"{STABLE_FRAMES} frames")
+    return out
 
 
 def merge_entry(entry, err, rel, work):
@@ -2889,18 +3045,27 @@ def cli_extras(root, mono_dir, mono_yaml, cfg):
                 stream_frames=report["frames"])
 
 
-def ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path):
+def ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path, depth):
     """The mono path with windowed BA on every promotion whose window is
     full (phase 10 of the module docstring).  Returns its numbers."""
     from dvo_tpu_torch.models import ba
-    from dvo_tpu_torch.models.odometry import _cull_chunk, monocular_init, monocular_run
+    from dvo_tpu_torch.models.odometry import (
+        _cull_chunk,
+        monocular_init,
+        monocular_run,
+        monocular_step,
+    )
+    from dvo_tpu_torch.tools import step_gate
 
     cfg_ba = dataclasses.replace(cfg, ba=dataclasses.replace(
         cfg.ba, enabled=True, window=BA_WINDOW, iterations=BA_ITERS))
 
-    def run(cfg_x, device, n, keep=None):
+    def run(cfg_x, device, n, keep=None, stable=False):
         g, m = (grays, masks) if device == dev else (grays[:n + 1].cpu(), masks[:n + 1].cpu())
-        state = monocular_init(g[0], m[0], K.to(device), cfg_x, device=device, noise=noise)
+        if stable:
+            state = stable_start(cfg_x, g, m, K.to(device), depth.to(device), device)
+        else:
+            state = monocular_init(g[0], m[0], K.to(device), cfg_x, device=device, noise=noise)
         outs = []
         for c in range(0, n, CHUNK):
             sl = slice(1 + c, 1 + min(c + CHUNK, n))
@@ -2948,28 +3113,69 @@ def ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path):
                 f"ms/frame with BA {ms_ba}, without {ms_off} (A, B, B, A): "
                 f"{per_promotion:.1f} ms of wall per promotion with BA on {card_line}")
 
-    # The first frames on the CPU, same noise and reset planes.
-    cpu = run(cfg_ba, "cpu", BA_CPU_FRAMES)
-    T_cpu, kf_cpu = cat(cpu, lambda r: r.T_world), cat(cpu, lambda r: r.is_keyframe)
-    cost_cpu = cat(cpu, lambda r: r.ba_cost)
+    # The first frames on the CPU, same reset planes: the stable rig as one
+    # trajectory (held), the noise-bootstrapped one (printed) ...
     n = BA_CPU_FRAMES
-    per_frame = (T[:n].cpu() - T_cpu).abs().flatten(1).max(dim=1).values
-    ba_frames = torch.nonzero(cost[:n].cpu() >= 0).flatten().tolist()
-    dT, dT_before = per_frame.max().item(), per_frame[:ba_frames[0]].max().item()
-    dT_first = per_frame[:ba_frames[1]].max().item()
-    same_kf = bool((kf[:n].cpu() == kf_cpu).all())
-    both = (cost[:n].cpu() >= 0) & (cost_cpu >= 0)
-    d_cost = ((cost[:n].cpu() - cost_cpu).abs() / cost_cpu.abs().clamp(min=1e-6))[both]
-    phase("ba", f"first {n} frames on the CPU: max |T_cuda - T_cpu| {dT_before:.3g} before the "
-                f"first BA (frame {ba_frames[0]}; tol {POSE_TOL}), at the BA frames "
-                f"{ba_frames}: {[float(f'{per_frame[i]:.3g}') for i in ba_frames]}, "
-                f"{dT_first:.3g} before the second (tol {BA_FIRST_TOL}), {dT:.3g} "
-                f"over all {n} (tol {BA_POSE_TOL}); keyframes equal: {same_kf}, ba_cost within "
-                f"{d_cost.max().item() if len(d_cost) else 0.0:.3g} relative")
-    if not same_kf or not dT_before <= POSE_TOL or not dT_first <= BA_FIRST_TOL \
-            or not dT <= BA_POSE_TOL or not bool(
-            ((cost[:n].cpu() >= 0) == (cost_cpu >= 0)).all()) or not len(d_cost):
-        raise AssertionError("ba: CUDA and CPU runs disagree")
+
+    def cuda_vs_cpu(outs, cpu):
+        T_x, kf_x = cat(outs, lambda r: r.T_world)[:n].cpu(), cat(outs, lambda r: r.is_keyframe)
+        cost_x = cat(outs, lambda r: r.ba_cost)[:n].cpu()
+        T_cpu, kf_cpu = cat(cpu, lambda r: r.T_world), cat(cpu, lambda r: r.is_keyframe)
+        cost_cpu = cat(cpu, lambda r: r.ba_cost)
+        per_frame = (T_x - T_cpu).abs().flatten(1).max(dim=1).values
+        ba_frames = torch.nonzero(cost_x >= 0).flatten().tolist()
+        both = (cost_x >= 0) & (cost_cpu >= 0)
+        d_cost = ((cost_x - cost_cpu).abs() / cost_cpu.abs().clamp(min=1e-6))[both]
+        return dict(
+            ba_frames=ba_frames, dT=per_frame.max().item(),
+            dT_before=per_frame[:ba_frames[0]].max().item() if ba_frames else None,
+            dT_first=per_frame[:ba_frames[1]].max().item() if len(ba_frames) > 1 else None,
+            at_ba=[float(f"{per_frame[i]:.3g}") for i in ba_frames],
+            keyframes_equal=bool(torch.equal(kf_x[:n].cpu(), kf_cpu)),
+            ba_frames_equal=bool(torch.equal(cost_x >= 0, cost_cpu >= 0)),
+            d_cost=d_cost.max().item() if len(d_cost) else None,
+            decisions=(decisions(kf_x[:n]), decisions(kf_cpu)))
+
+    def say(rig, r):
+        return (f"{rig}, first {n} frames on the card and the CPU: max |T_cuda - T_cpu| "
+                f"{r['dT_before']:.3g} before the first BA (frame {r['ba_frames'][0]}; tol "
+                f"{POSE_TOL}), at the BA frames {r['ba_frames']}: {r['at_ba']}, "
+                f"{r['dT_first']:.3g} before the second (tol {BA_FIRST_TOL}), {r['dT']:.3g} over "
+                f"all {n} (tol {BA_POSE_TOL}); keyframes equal: {r['keyframes_equal']} "
+                f"({r['decisions'][0]}, {r['decisions'][1]}), ba_cost within {r['d_cost']:.3g} "
+                "relative")
+
+    stable = cuda_vs_cpu(run(cfg_ba, dev, n, stable=True), run(cfg_ba, "cpu", n, stable=True))
+    phase("ba", say(f"stable rig ({STABLE_RIG}, held)", stable))
+    if len(stable["ba_frames"]) < 2 or not stable["keyframes_equal"] \
+            or not stable["dT_before"] <= POSE_TOL or not stable["dT_first"] <= BA_FIRST_TOL \
+            or not stable["dT"] <= BA_POSE_TOL or not stable["ba_frames_equal"]:
+        raise AssertionError("ba: CUDA and CPU runs of the stable rig disagree")
+    noisy = cuda_vs_cpu(outs, run(cfg_ba, "cpu", n))
+    phase("ba", say("noise-bootstrapped rig (printed)", noisy))
+    # ... and the noise-bootstrapped rig's steps that run a bundle_adjust,
+    # each from the card's state before it (the eager loop, which a run with
+    # BA is) against the same step on the CPU, at BA_SOLVE_TOL: poses, the
+    # decision, the window's poses and the cost (BA's depth maps are
+    # printed: its depth solve moves thousands of pixels on float noise).
+    cfg_e, K_e, (g_e, m_e) = _cull_chunk(cfg_ba, K, grays[1:1 + n], masks[1:1 + n])
+    r_e = resets[:n].to(dev)
+    g_ec, m_ec, K_ec = g_e.cpu(), m_e.cpu(), K_e.cpu()
+    _, gate_res, readings = step_gate.per_frame_gates(
+        monocular_init(grays[0], masks[0], K, cfg_ba, device=dev, noise=noise), range(n),
+        lambda st, i: monocular_step(st, g_e[i], m_e[i], K_e, cfg_e, r_e[i]),
+        lambda st, i: monocular_step(st, g_ec[i], m_ec[i], K_ec, cfg_e, resets[i]),
+        cfg.tracker.max_iterations, BA_SOLVE_TOL, MAP_VALUE_TOL, 0.0,
+        gate=lambda i, res: float(res.ba_cost) >= 0)
+    gates = {k: step_gate.summary(v) for k, v in readings.items()}
+    same = bool(torch.equal(torch.stack([r.T_world for r in gate_res]), T[:n]))
+    phase("ba", f"noise-bootstrapped rig, each step with BA from the card's state vs the CPU's "
+                f"step: {gates} (tol {BA_SOLVE_TOL}); the eager loop's poses bitwise the run's: "
+                f"{same}")
+    tracked = gates[step_gate.CHECKS[1]]
+    if any(g["failed"] for g in gates.values()) or tracked["ba_frames"] != noisy["ba_frames"] \
+            or not same:
+        raise AssertionError("ba: a step with BA differs between the card and the CPU")
 
     # Host syncs per frame with BA on, from the state after the first chunk
     # (ring full), inputs on the card; the frames must hold a promotion.
@@ -3016,7 +3222,9 @@ def ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path):
         raise AssertionError("ba: one solve differs between card and CPU, or batched and loop")
     return dict(frames=N_FRAMES, promotions=n_kf, promotions_with_ba=n_ba,
                 ms_per_frame=dict(ba=ms_ba, off=ms_off), ms_per_promotion_with_ba=per_promotion,
-                cuda_vs_cpu_max_dT=dT, cuda_vs_cpu_frames=n, syncs_per_frame=syncs / BA_SYNC_FRAMES,
+                cuda_vs_cpu_max_dT=noisy["dT"], cuda_vs_cpu_frames=n,
+                cuda_vs_cpu_stable=stable, cuda_vs_cpu_noisy=noisy, step_gates=gates,
+                syncs_per_frame=syncs / BA_SYNC_FRAMES,
                 bundle_adjust=solve, batched_vs_loop_max_dxi=d_xi, card_vs_cpu_max_dxi=d_xi_cpu)
 
 
@@ -3162,7 +3370,8 @@ def main() -> None:
         rgbd_step,
     )
     from dvo_tpu_torch.ops.cuda import _build
-    from dvo_tpu_torch.tools import epipolar_sweep, framebuild_floor
+    from dvo_tpu_torch.tools import epipolar_sweep, framebuild_floor, regularize_sweep, step_gate
+    from dvo_tpu_torch.tools.step_gate import on_device
 
     # 1. device
     dev = torch.device("cuda", 0)
@@ -3191,7 +3400,7 @@ def main() -> None:
 
     if "--back-end" in sys.argv[1:]:
         by_path = {}
-        ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path)
+        ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path, depth)
         posegraph_phase(dev, card_line, grays, K, cfg, by_path)
         return
     if "--streams" in sys.argv[1:]:
@@ -3201,16 +3410,24 @@ def main() -> None:
         sharded_phase(dev, card_line)
         return
 
-    # 3. kernels, on the state a warm-up run leaves (ring filled by promotions)
-    warm, _ = monocular_run(init(dev), grays[1:1 + CHUNK], masks[1:1 + CHUNK], K, cfg,
-                            resets[:CHUNK].to(dev))
+    # 3. kernels, on the state a warm-up run leaves (ring filled by
+    # promotions), a state the kernels under test did not make: the run is
+    # the CPU's (the plain versions), moved to the card
+    cfg_c, K_c, (g_c, m_c) = _cull_chunk(cfg, K.cpu(), grays[1:1 + CHUNK].cpu(),
+                                         masks[1:1 + CHUNK].cpu())
+    warm = init("cpu")
+    for i in range(CHUNK):
+        warm, _ = monocular_step(warm, g_c[i], m_c[i], K_c, cfg_c, resets[i])
+        if i + 1 == EARLY_FRAMES:
+            early = on_device(warm, dev)
+    warm = on_device(warm, dev)
     nxt = 1 + CHUNK
     cfg0, K0, (gray_next, mask_next) = _cull_chunk(cfg, K, grays[nxt], masks[nxt])
-    kernels, fb = kernel_phase(warm, gray_next, mask_next, K0, cfg0)
-    # ... the depth update once more early in a run: the ring not full, and a
-    # block of pixels given an age past the live keyframes (aged out) ...
-    early, _ = monocular_run(init(dev), grays[1:1 + EARLY_FRAMES], masks[1:1 + EARLY_FRAMES], K,
-                             cfg, resets[:EARLY_FRAMES].to(dev))
+    reg_sweep = []
+    kernels, fb = kernel_phase(warm, gray_next, mask_next, K0, cfg0, sweeps=reg_sweep)
+    # ... the depth update once more early in a run (the same CPU run,
+    # EARLY_FRAMES frames in): the ring not full, and a block of pixels
+    # given an age past the live keyframes (aged out) ...
     if not early.history.count < early.history.capacity:
         raise AssertionError(f"the early state's ring holds {int(early.history.count)} "
                              "keyframes")
@@ -3235,7 +3452,8 @@ def main() -> None:
     entries = {k["name"]: k for k in kernels}
     rgbd_label, fb_device, fb_work = rgbd_kernel_phase(dev, r_grays, r_masks, r_counts, r_K,
                                                        cfg_r, entries, fb)
-    kin_kernels, kin_fb = kinect_mono_kernel_phase(dev, r_grays, r_masks, r_counts, r_K, cfg)
+    kin_kernels, kin_fb = kinect_mono_kernel_phase(dev, r_grays, r_masks, r_counts, r_K, cfg,
+                                                   reg_sweep)
     for entry, more in zip(kernels, kin_kernels):
         for key in ("max_abs_err", "max_rel_err"):
             if key in more:
@@ -3254,6 +3472,13 @@ def main() -> None:
     planes, plane_args = plane_rig_phase(dev, card_line, cfg, resets, kernels, fb, old_census)
     sharded_rows = sharded_kernel_checks(card_line, warm, gray_next, mask_next, K0, cfg0,
                                          plane_args, kernels)
+    # ... and the regulariser's launches at the two shapes no path gives it
+    reg_sweep += regularize_sweep.sweep(
+        {"x".join(map(str, sh)): regularize_sweep.maps(*sh, dev) for sh in REGULARIZE_SHAPES},
+        cfg.mapper, sys.modules[__name__], say=lambda line: phase("kernels", line))
+
+    # how far float noise steers the monocular rigs
+    stable = stable_rig_phase(dev, card_line, cfg, grays, masks, K, depth, resets)
 
     # 4. main path: the graphed driver (one capture per run), then the eager
     # step loop in turns
@@ -3390,18 +3615,53 @@ def main() -> None:
                   f"{device_ops(gn_loops['mono'])}, "
                   f"stepwise launches {by_path['mono_stepwise']} on {card_line}")
 
-    # 5. the first frames on the CPU with the plain versions
-    cpu_state = init("cpu")
-    _, cpu_res = monocular_run(cpu_state, grays[1:1 + CPU_FRAMES].cpu(),
-                               masks[1:1 + CPU_FRAMES].cpu(), K.cpu(), cfg,
-                               resets[:CPU_FRAMES])
+    # 5. the CPU with the plain versions against the card: the stable rig's
+    # first CPU_FRAMES frames as one trajectory (its first STABLE_FRAMES
+    # printed) ...
+    n = STABLE_FRAMES
+    st_card = monocular_run(stable_start(cfg, grays, masks, K, depth, dev), grays[1:1 + n],
+                            masks[1:1 + n], K, cfg, resets[:n].to(dev))[1]
+    st_cpu = monocular_run(stable_start(cfg, grays, masks, K, depth, "cpu"), grays[1:1 + n].cpu(),
+                           masks[1:1 + n].cpu(), K.cpu(), cfg, resets[:n])[1]
+    dT_frames = (st_card.T_world.cpu() - st_cpu.T_world).abs().flatten(1).max(dim=1).values
+    dT_stable = dT_frames[:CPU_FRAMES].max().item()
+    same_kf = bool(torch.equal(st_card.is_keyframe.cpu(), st_cpu.is_keyframe))
+    phase("cpu", f"stable rig ({STABLE_RIG}): max |T_cuda - T_cpu| {dT_stable:.3g} over the "
+                 f"first {CPU_FRAMES} frames (tol {POSE_TOL}); per frame over {n}: "
+                 f"{[float(f'{v:.3g}') for v in dT_frames.tolist()]}; keyframes cuda "
+                 f"{decisions(st_card.is_keyframe)} cpu {decisions(st_cpu.is_keyframe)}")
+    if not same_kf or not dT_stable <= POSE_TOL:
+        raise AssertionError("stable rig: CUDA and CPU runs disagree")
+    # ... and the noise-bootstrapped rig (the main path) frame by frame: the
+    # card's state before each frame (the eager step loop, bitwise the
+    # graphed driver's) copied to the CPU, the step there on the same frame
+    # and reset plane, with the card's tracking and, where the card's
+    # tracker converged, with its own (tools/step_gate); its whole
+    # trajectory against the CPU's is printed.
+    cpu_res = monocular_run(init("cpu"), grays[1:1 + CPU_FRAMES].cpu(),
+                            masks[1:1 + CPU_FRAMES].cpu(), K.cpu(), cfg, resets[:CPU_FRAMES])[1]
     dT = (T[:CPU_FRAMES].cpu() - cpu_res.T_world).abs().max().item()
-    same_kf = bool((kf[:CPU_FRAMES].cpu() == cpu_res.is_keyframe).all())
-    phase("cpu", f"first {CPU_FRAMES} frames: max |T_cuda - T_cpu| {dT:.3g} (tol {POSE_TOL}), "
-                 f"keyframes cuda {kf[:CPU_FRAMES].int().tolist()} "
-                 f"cpu {cpu_res.is_keyframe.int().tolist()}")
-    if not same_kf or not dT <= POSE_TOL:
-        raise AssertionError("CUDA and CPU runs disagree")
+    cfg_e, K_e, (g_e, m_e) = _cull_chunk(cfg, K, grays[1:1 + N_FRAMES], masks[1:1 + N_FRAMES])
+    r_e = resets[:N_FRAMES].to(dev)
+    g_ec, m_ec, K_ec = g_e.cpu(), m_e.cpu(), K_e.cpu()
+    _, gate_res, readings = step_gate.per_frame_gates(
+        init(dev), range(N_FRAMES),
+        lambda st, i: monocular_step(st, g_e[i], m_e[i], K_e, cfg_e, r_e[i]),
+        lambda st, i: monocular_step(st, g_ec[i], m_ec[i], K_ec, cfg_e, resets[i]),
+        cfg.tracker.max_iterations, POSE_TOL, MAP_VALUE_TOL, MAP_SHARE)
+    step_gates = {"mono": {k: step_gate.summary(v) for k, v in readings.items()}}
+    eager_T = torch.stack([r.T_world for r in gate_res])
+    for check, got in step_gates["mono"].items():
+        phase("cpu", f"noise-bootstrapped rig, per frame from the card's state, the CPU step "
+                     f"with {check}: {len(got['frames'])} of {N_FRAMES} frames: {got} (tol "
+                     f"{POSE_TOL}, maps {MAP_VALUE_TOL} on {MAP_SHARE})")
+    phase("cpu", f"noise-bootstrapped rig, whole trajectory (printed): first {CPU_FRAMES} frames "
+                 f"max |T_cuda - T_cpu| {dT:.3g}, keyframes cuda {decisions(kf[:CPU_FRAMES])} "
+                 f"cpu {decisions(cpu_res.is_keyframe)}; the eager loop's poses bitwise the "
+                 f"graphed run's: {bool(torch.equal(eager_T, T))}")
+    if any(got["failed"] for got in step_gates["mono"].values()) or not torch.equal(eager_T, T):
+        raise AssertionError("per-frame gates: a card step and its CPU step disagree, or the "
+                             "eager loop left the graphed run")
 
     # 6. RGB-D: frame 0 converted as rgbd_run_raw converts, then one chunk
     def rgbd_start(device):
@@ -3543,17 +3803,23 @@ def main() -> None:
     if captures != dict(rgbd=1, mono=1):
         raise AssertionError(f"expected one capture per run: {captures}")
 
-    # 8b. one step of each path captured in a CUDA graph and replayed
-    # (on the state after frame nxt, a promotion: the next frame is no
-    # keyframe, the ones after it are)
-    _, K_m, (g_m, m_m) = _cull_chunk(cfg, K, grays[nxt:nxt + 1 + GRAPH_REPLAYS],
-                                     masks[nxt:nxt + 1 + GRAPH_REPLAYS])
-    cfg_m = dataclasses.replace(cfg, pyramid=dataclasses.replace(cfg.pyramid, culls=0))
-    r_m = resets[nxt - 1:nxt + GRAPH_REPLAYS].to(dev)
-    after, first_step = monocular_step(warm, g_m[0], m_m[0], K_m, cfg_m, r_m[0])
-    if not bool(first_step.is_keyframe):
-        raise AssertionError("graphs: frame nxt is no promotion")
-    g_m, m_m, r_m = g_m[1:], m_m[1:], r_m[1:]
+    # 8b. one step of each path captured in a CUDA graph and replayed; the
+    # mono step on the stable rig, from the state after its first promotion
+    # past CHUNK frames (its promotions alternate with frames that are none)
+    cfg_m, K_m, (g_m, m_m) = _cull_chunk(cfg, K, grays[1:], masks[1:])
+    r_m = resets.to(dev)
+    after = monocular_run(stable_start(cfg, grays, masks, K, depth, dev), grays[1:1 + CHUNK],
+                          masks[1:1 + CHUNK], K, cfg, resets[:CHUNK].to(dev))[0]
+    j = CHUNK
+    while True:
+        after, first_step = monocular_step(after, g_m[j], m_m[j], K_m, cfg_m, r_m[j])
+        if bool(first_step.is_keyframe):
+            break
+        j += 1
+        if j + 1 + GRAPH_REPLAYS > N_FRAMES:
+            raise AssertionError(f"graphs: no promotion on the stable rig in frames "
+                                 f"{CHUNK}-{j}")
+    g_m, m_m, r_m = (x[j + 1:j + 1 + GRAPH_REPLAYS] for x in (g_m, m_m, r_m))
     mono_in = (g_m[0].clone(), m_m[0].clone(), r_m[0].clone())
     cfg_rc, K_r, (g_r, m_r, c_r) = _cull_chunk(
         cfg_r, r_K.to(dev), *(x[1:1 + GRAPH_REPLAYS].to(dev) for x in (r_grays, r_masks, r_counts)))
@@ -3596,7 +3862,7 @@ def main() -> None:
 
     # 10, 11. the back end
     back_end = dict(
-        ba=ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path),
+        ba=ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path, depth),
         posegraph=posegraph_phase(dev, card_line, grays, K, cfg, by_path))
 
     if "jax" in sys.modules:
@@ -3652,7 +3918,9 @@ def main() -> None:
                       "syncs_per_frame": {"mono": syncs_mono / n_mono, "rgbd": syncs_rgbd / n},
                       "syncs_in_capture_chunk": syncs_capture, "captures_per_run": captures,
                       "drivers": drivers, "streams": streams, "parallel": parallel,
-                      "sharded": sharded,
+                      "sharded": sharded, "regularize_sweep": reg_sweep,
+                      "stable_rig": dict(readings=stable, cpu_max_dT=dT_stable),
+                      "step_gates": dict(step_gates, ba=back_end["ba"]["step_gates"]),
                       "cli": cli, "back_end": back_end, "card": card_line})))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -61,7 +61,11 @@
 //    barriers 1.1k and 0.8k.  One block of 512 threads took 15.6k at 27x32
 //    and 36.4k at 53x64 (two or more pixels a thread, in turn); 16 blocks of
 //    1024 (64 registers, spilled) 44.8k at 212x256 against 47.5k for 16 of
-//    512.
+//    512.  The shapes of level_shape against 8 blocks of 512 at every level
+//    up to 32,768 pixels, in turns (tools/gn_level_stamps.py --turns, same
+//    card): 14.35k / 15.1k at 30x40, 14.32k / 14.74k at 27x32, 16.03k /
+//    18.4k at 60x80, 21.85k / 27.1k at 106x128, 23.3k / 28.8k at 120x160;
+//    gn_level 144 / 151 us a graphed mono frame, 178 / 190 an RGB-D one.
 //  * The statistics past the last active step are 0 and `iterations` counts
 //    the active steps: the contract of the fixed-length masked loop
 //    (gn_level_plain), without its inactive linearisations and with no
@@ -76,6 +80,7 @@
 // also marks five stages of the step: its start, the solve, the compose's
 // exponentials, the logarithm, its end.
 #ifdef DVO_GN_LEVEL_STAMPS
+#define DVO_GN_LEVEL_SHAPES
 __shared__ long long dvo_step_marks[5];
 #define DVO_STEP_MARK(k) if (threadIdx.x == 0) dvo_step_marks[k] = clock64()
 #endif
@@ -117,19 +122,21 @@ struct Shape {
   int blocks, threads;
 };
 
-// The shape of a level of h x w pixels (mirrored by gn_level.launch_shape),
-// from tools/gn_level_stamps.py's cycles per step at the rigs' seven level
-// sizes (PERF.md): a cluster of 8 blocks of 512 threads up to 32768 pixels,
-// of 16 blocks of 1024 above.  One block was slower at every level: a pixel
-// is a ~3k-cycle dependent chain, and 512 threads take two or more of them
-// in turn where a cluster takes one.  16 blocks of 512 took 16-24% fewer
-// cycles than 8 at 4,800-19,200 pixels, and 8 blocks of 256 3-5% fewer at
-// 1,200 and fewer; both change the bits, and moved the monocular rig's
-// trajectory (whose keyframe decisions follow float noise) past
-// chip_smoke.py's CUDA-vs-CPU gates of its BA phase.  8 blocks of 512 give
-// the earlier design's bits, and its trajectory.
+// The shape of a level of h x w pixels (mirrored by gn_level.launch_shape):
+// the least SM cycles a step in tools/gn_level_stamps.py's sweep of this
+// kernel at the rigs' seven level sizes (PERF.md): a cluster of 8 blocks of
+// 256 threads up to 1,200 pixels, of 8 of 512 up to 4,096, of 16 of 512 up
+// to 32,768, of 16 of 1024 above.  One block was slower at every level: a
+// pixel is a ~3k-cycle dependent chain, and 512 threads take two or more of
+// them in turn where a cluster takes one.  Each shape groups the pixels'
+// sums otherwise: its bits differ from another's by float noise, which
+// chip_smoke.py's gates hold step by step (the monocular trajectory follows
+// float noise; ROADMAP queue C, v).
 Shape level_shape(int h, int w) {
-  if (h * w <= 32768) return {8, 512};
+  const int n = h * w;
+  if (n <= 1200) return {8, 256};
+  if (n <= 4096) return {8, 512};
+  if (n <= 32768) return {16, 512};
   return {16, 1024};
 }
 
@@ -318,16 +325,16 @@ cudaError_t launch_shaped(Shape shape, const dvo::GNPlanes& planes, const float*
   if (shape.blocks == B && shape.threads == T)                                           \
     return launch_level<B, T>(planes, K, xi0, out, s, max_iterations, damping,           \
                               min_update_norm, min_residual, stream);
+  DVO_SHAPE(8, 256)
   DVO_SHAPE(8, 512)
+  DVO_SHAPE(16, 512)
   DVO_SHAPE(16, 1024)
-#ifdef DVO_GN_LEVEL_STAMPS  // every candidate of tools/gn_level_stamps.py
+#ifdef DVO_GN_LEVEL_SHAPES  // every candidate of tools/gn_level_stamps.py
   DVO_SHAPE(1, 256)
   DVO_SHAPE(1, 512)
   DVO_SHAPE(1, 1024)
-  DVO_SHAPE(8, 256)
   DVO_SHAPE(8, 1024)
   DVO_SHAPE(16, 256)
-  DVO_SHAPE(16, 512)
 #endif
 #undef DVO_SHAPE
   return cudaErrorInvalidConfiguration;
@@ -382,8 +389,11 @@ extern "C" int dvo_gn_level(const float* obj_gray, const uint8_t* obj_mask,
                     max_iterations, damping, min_update_norm, min_residual, stream);
 }
 
-#ifdef DVO_GN_LEVEL_STAMPS
+#ifdef DVO_GN_LEVEL_SHAPES
 // dvo_gn_level at a given shape (tools/gn_level_stamps.py's candidates).
+// Built with -DDVO_GN_LEVEL_SHAPES alone (no stamps; `stamps` may be null),
+// chip_smoke.py runs the monocular path with every level at another shape
+// than level_shape's: whether a rig's trajectory follows float noise.
 extern "C" int dvo_gn_level_shaped(int blocks, int threads, const float* obj_gray,
                                    const uint8_t* obj_mask, const float* ref_depth,
                                    const float* ref_sigma, const float* ref_gray,

@@ -59,6 +59,9 @@ _SIGNATURES = {
     "dvo_gn_level": ([_P] * 17 + [_I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,
                                   _I, _F, _F, _F, _P], _I),
     "dvo_regularize": ([_P] * 3 + [_I, _I, _F, _F, _P], _I),
+    "dvo_regularize_kind": ([], _I),
+    "dvo_regularize_block_rows": ([], _I),
+    "dvo_regularize_thread_rows": ([], _I),
     "dvo_epipolar_lanes": ([], _I),
     "dvo_epipolar_threads": ([], _I),
     "dvo_epipolar_pixels": ([], _I),

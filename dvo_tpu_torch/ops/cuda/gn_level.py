@@ -52,9 +52,15 @@ def launch_shape(h: int, w: int):
     """(blocks a launch, threads a block) of the level kernel at h x w
     pixels: ``csrc/gn_level.cu``'s ``level_shape``, which the kernel's C
     entries ``dvo_gn_level_blocks``/``dvo_gn_level_threads`` give on the
-    card: a cluster of 8 blocks of 512 threads up to 32768 pixels, of 16
-    blocks of 1024 above (the kernel's comment and PERF.md say why)."""
-    return (8, 512) if h * w <= 32768 else (16, 1024)
+    card: a cluster of 8 blocks of 256 threads up to 1,200 pixels, of 8 of
+    512 up to 4,096, of 16 of 512 up to 32,768, of 16 of 1024 above (the
+    kernel's comment and PERF.md say why)."""
+    n = h * w
+    if n <= 1200:
+        return (8, 256)
+    if n <= 4096:
+        return (8, 512)
+    return (16, 512) if n <= 32768 else (16, 1024)
 
 
 def work(shape, valid_counts, max_iterations: int):

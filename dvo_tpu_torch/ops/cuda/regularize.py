@@ -3,7 +3,9 @@ PyTorch version, and the wrapper that picks one by device.
 
 Replaces ``dvo_tpu/ops/pallas/regularize.py:_regularize_kernel`` (via
 ``regularize_pallas``); both versions follow the XLA twin
-``dvo_tpu.models.mapper.regularize``.
+``dvo_tpu.models.mapper.regularize``.  The kernel's header note says what
+bounds it on the card, which launches were measured and why ``LAUNCH`` was
+kept.
 """
 
 from __future__ import annotations
@@ -20,6 +22,27 @@ from dvo_tpu_torch.ops.depth_filter import gaussian_fuse
 # the clamp one more.
 BYTES_PER_PIXEL = 3 * 4
 FLOPS_PER_PIXEL = 4 * 18 + 1
+
+
+# The kernel's launch (``csrc/regularize.cu``'s ``kLaunch``, whose C entries
+# ``dvo_regularize_kind``/``_block_rows``/``_thread_rows`` give it on the
+# card): (kind, rows of a block, rows a thread walks).  "flat": one pixel a
+# thread on a 1-D grid of 256; "tile": blocks of 32 x rows threads, one
+# pixel a thread; "walk": blocks of 32 x rows threads, a warp 32
+# neighbouring columns, a thread ``thread_rows`` rows of its column, left
+# and right neighbours from the neighbouring lanes.
+KINDS = ("flat", "tile", "walk")
+FLAT_THREADS = 256
+LAUNCH = ("tile", 4, 1)
+
+
+def launch_grid(h: int, w: int, launch=LAUNCH):
+    """(grid, block) of a launch at h x w pixels, CUDA's (x, y) order."""
+    kind, block_rows, thread_rows = launch
+    if kind == "flat":
+        return (-(-h * w // FLAT_THREADS), 1), (FLAT_THREADS, 1)
+    rows = block_rows * (thread_rows if kind == "walk" else 1)
+    return (-(-w // 32), -(-h // rows)), (32, block_rows)
 
 
 def work(shape):

@@ -23,6 +23,11 @@ the whole step, beside the card's maximum SM clock (a launch this short does
 not hold the clock that ``nvidia-smi`` samples, so the cycles are not
 converted), and the shape ``gn_level.launch_shape`` takes there.
 
+``build_shapes`` builds the same candidates without stamps, and
+``shaped_levels`` puts ``dvo_gn_level_shaped`` at another shape in place of
+the product's entry (``chip_smoke.py`` runs the monocular path so, at
+``other_shape`` on every level).
+
     python3 -m dvo_tpu_torch.tools.gn_level_stamps --baseline DIR
 
 builds ``DIR/dvo_tpu_torch/csrc/gn_level.cu`` (an earlier tree, unpacked with
@@ -106,6 +111,39 @@ def build_stamps(csrc: Path, tag: str):
     return _load(out, ["dvo_gn_level", "dvo_gn_level_shaped"])
 
 
+def build_shapes(csrc: Path = None):
+    """``csrc``'s ``gn_level.cu`` (default: this tree's) built with
+    ``-DDVO_GN_LEVEL_SHAPES``: ``dvo_gn_level`` and ``dvo_gn_level_shaped``
+    at every shape of ``CANDIDATES``, without stamps."""
+    from dvo_tpu_torch.ops.cuda import _build
+
+    csrc = _build.SOURCE_DIR if csrc is None else Path(csrc)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / f"libdvo_gn_level_shapes.{os.getpid()}.so"
+    _nvcc(["-DDVO_GN_LEVEL_SHAPES", "-shared", "-I", str(csrc), "-o", str(out),
+           str(csrc / "gn_level.cu")], f"{csrc} with every shape")
+    return _load(out, ["dvo_gn_level", "dvo_gn_level_shaped"])
+
+
+def other_shape(h: int, w: int):
+    """A launch shape other than ``gn_level.launch_shape(h, w)``, at every
+    level: the other cluster size (8 <-> 16 blocks), the same threads."""
+    from dvo_tpu_torch.ops.cuda import gn_level
+
+    blocks, threads = gn_level.launch_shape(h, w)
+    return 24 - blocks, threads
+
+
+def shaped_levels(lib, shape_of):
+    """The level wrapper launches ``lib.dvo_gn_level_shaped`` at
+    ``shape_of(h, w)`` in place of ``dvo_gn_level`` (this tree's other
+    entries unchanged)."""
+    def level(*args):   # dvo_gn_level's arguments: 17 pointers, then h, w
+        return lib.dvo_gn_level_shaped(*shape_of(args[17], args[18]), *args)
+
+    return swapped(dvo_gn_level=level)
+
+
 _TREES = itertools.count()
 
 
@@ -138,22 +176,16 @@ def build_tree(tree):
 
 
 @contextlib.contextmanager
-def kernels_of(lib):
-    """The wrappers launch ``lib``'s ``dvo_gn_level`` and ``dvo_gn_step``
-    (and this tree's other entries); ``lib`` None: this tree's own."""
+def swapped(**entries):
+    """The wrappers call ``entries`` (C entry name -> function) in place of
+    this tree's, and this tree's other entries."""
     from dvo_tpu_torch.ops.cuda import _build
 
-    if lib is None:
-        yield
-        return
     real = _build.library()
 
     class Swapped:
-        dvo_gn_level = lib.dvo_gn_level
-        dvo_gn_step = lib.dvo_gn_step
-
         def __getattr__(self, name):
-            return getattr(real, name)
+            return entries[name] if name in entries else getattr(real, name)
 
     saved = _build.library
     _build.library = lambda: Swapped()
@@ -161,6 +193,14 @@ def kernels_of(lib):
         yield
     finally:
         _build.library = saved
+
+
+def kernels_of(lib):
+    """The wrappers launch ``lib``'s ``dvo_gn_level`` and ``dvo_gn_step``
+    (and this tree's other entries); ``lib`` None: this tree's own."""
+    if lib is None:
+        return contextlib.nullcontext()
+    return swapped(dvo_gn_level=lib.dvo_gn_level, dvo_gn_step=lib.dvo_gn_step)
 
 
 def level_args(planes, K, xi0, level, t, n, floats, ints, stamps):

@@ -760,17 +760,19 @@ def _level_shapes(base, levels):
 
 @pytest.mark.parametrize("rig,base,levels,want", [
     # DVOConfig.monocular(): 640x480 culled twice, 3 levels
-    ("monocular", (120, 160), 3, [(8, 512)] * 3),
+    ("monocular", (120, 160), 3, [(16, 512), (16, 512), (8, 256)]),
     # DVOConfig.rgbd(): 512x424 culled once, 4 levels
-    ("rgbd", (212, 256), 4, [(16, 1024), (8, 512), (8, 512), (8, 512)]),
+    ("rgbd", (212, 256), 4, [(16, 1024), (16, 512), (8, 512), (8, 256)]),
     # Kinect mono (chip_smoke.py): the 512x424 depth view culled twice, 3 levels
-    ("kinect_mono", (106, 128), 3, [(8, 512)] * 3),
+    ("kinect_mono", (106, 128), 3, [(16, 512), (8, 512), (8, 256)]),
 ])
 def test_launch_shape_at_every_level_of_the_rigs(rig, base, levels, want):
     """``gn_level.launch_shape`` (the mirror of ``csrc/gn_level.cu``'s
     ``level_shape``, held against its C entries on the card) at every
-    level, finest first: a cluster of 8 blocks of 512 threads up to 32768
-    pixels, of 16 blocks of 1024 above."""
+    level, finest first: a cluster of 8 blocks of 256 threads up to 1,200
+    pixels, of 8 of 512 up to 4,096, of 16 of 512 up to 32,768, of 16 of
+    1024 above (the least cycles a step of ``tools/gn_level_stamps``'
+    sweep at each of these levels)."""
     from dvo_tpu_torch.config import DVOConfig
 
     cfg = {"monocular": DVOConfig.monocular(), "rgbd": DVOConfig.rgbd(),
@@ -780,7 +782,9 @@ def test_launch_shape_at_every_level_of_the_rigs(rig, base, levels, want):
     got = [gn_level.launch_shape(h, w) for h, w in shapes]
     assert got == want
     for (h, w), shape in zip(shapes, got):
-        assert shape == ((8, 512) if h * w <= 32768 else (16, 1024))
+        n = h * w
+        assert shape == ((8, 256) if n <= 1200 else (8, 512) if n <= 4096 else
+                         (16, 512) if n <= 32768 else (16, 1024))
 
 
 def kernel_sums(J, r, weight, valid, weight_b_only, blocks, threads):
@@ -826,7 +830,7 @@ def kernel_sums(J, r, weight, valid, weight_b_only, blocks, threads):
     return total[:gn.N_SUMS]
 
 
-@pytest.mark.parametrize("hw", [(27, 32), (60, 80), (106, 128), (212, 256)])
+@pytest.mark.parametrize("hw", [(27, 32), (53, 64), (60, 80), (106, 128), (212, 256)])
 @pytest.mark.parametrize("weight_b_only", [False, True])
 def test_kernel_sum_order_matches_the_plain_sums(rng, hw, weight_b_only):
     """``kernel_sums`` at the level's launch shape, over
