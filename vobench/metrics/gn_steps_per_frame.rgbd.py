@@ -1,0 +1,5 @@
+"""``gn_steps_per_frame``, in the RGB-D cells, where it moves ``frames_per_s.rgbd``."""
+
+from vobench.harness import reader
+
+read = reader("gn_steps_per_frame")
