@@ -31,16 +31,25 @@ so the runner, which hands each chunk's state to the next, captures once
 per stream per run.  A chunk starts by copying its incoming state into the
 static one and ends with one copy of the static state out: the returned
 state never aliases a buffer that a later replay writes.
+
+Tracing (``utils/trace``): ``run`` opens the spans ``dvo.load``,
+``dvo.issue`` (the frames) and ``dvo.unload``, a capture ``dvo.capture``;
+the copies are the ``copy`` stage.  The graph captured at set-up holds no
+marker.  While markers are on (tracing, one stream), a driver captures a
+second, traced copy of its step once, with the stage markers in it, and
+replays that copy for as long as tracing stays on.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 
 import torch
 
 from dvo_tpu_torch.models.frame import Frame, Scene, _one_buffer
+from dvo_tpu_torch.utils import trace
 
 PLANES = tuple(f.name for f in dataclasses.fields(Scene) if f.name != "K")
 
@@ -202,37 +211,60 @@ class StepDriver:
         self.inputs = [x.clone() for x in inputs]
         self.K = K.clone()
         self._step = step
-        self.stream = self.out = None
+        self.stream = self.out = self._traced = None
         if self.cuda:
-            from dvo_tpu_torch.ops.cuda import _build
-
             self.stream = torch.cuda.Stream(K.device)
-            self.out, self._replay, self.captured = _build.capture_graph(
-                self._body, stream=self.stream, keep=leaves(self.state),
-                generators=() if generator is None else (generator,))
+            with trace.span("capture"), trace.unmarked():
+                self.out, self._replay = self._capture(warmup=2)
+
+    def _capture(self, warmup: int):
+        from dvo_tpu_torch.ops.cuda import _build
+
+        out, replay, _ = _build.capture_graph(
+            self._body, warmup=warmup, stream=self.stream, keep=leaves(self.state),
+            generators=() if self.generator is None else (self.generator,))
+        return out, replay
+
+    def traced(self):
+        """(outputs, replay) of the traced copy of the step: captured at
+        the first call, with no warm-up, while markers are on."""
+        if self._traced is None:
+            with trace.span("capture"):
+                self._traced = self._capture(warmup=0)
+        return self._traced
 
     def _body(self):
         new, result = self._step(self.state, self.inputs, self.K)
-        copy_pairs(state_pairs(self.state, new))
+        with trace.stage("copy", end=True):
+            copy_pairs(state_pairs(self.state, new))
         return result
+
+    def on_stream(self):
+        """The context that runs work on this driver's CUDA stream."""
+        return torch.cuda.stream(self.stream) if self.cuda else contextlib.nullcontext()
 
     def load(self, state, K, sources) -> None:
         """Start a chunk from ``state``: copy it, ``K`` and the chunk-wide
         inputs (``sources``: (tensor, per_frame) aligned with the inputs)."""
-        copy_pairs(state_pairs(self.state, state) + [(self.K, K)]
-                   + [(x, t) for x, (t, per_frame) in zip(self.inputs, sources)
-                      if not per_frame])
+        with trace.stage("copy", end=True):
+            copy_pairs(state_pairs(self.state, state) + [(self.K, K)]
+                       + [(x, t) for x, (t, per_frame) in zip(self.inputs, sources)
+                          if not per_frame])
 
-    def frame(self, sources, i: int, results: ResultStack, row) -> None:
-        """Frame ``i`` of the chunk: its inputs in, one step, its results
-        into ``results`` at ``row``."""
-        copy_pairs([(x, t[i]) for x, (t, per_frame) in zip(self.inputs, sources) if per_frame])
+    def frame(self, sources, i: int, results: ResultStack, row, traced: bool = False) -> None:
+        """Frame ``i`` of the chunk: its inputs in, one step (the traced
+        copy's replay with ``traced``), its results into ``results`` at
+        ``row``."""
+        with trace.stage("copy", end=True):
+            copy_pairs([(x, t[i]) for x, (t, per_frame) in zip(self.inputs, sources)
+                        if per_frame])
         if self.cuda:
-            self._replay()
-            result = self.out
+            result, replay = self.traced() if traced else (self.out, self._replay)
+            replay()
         else:
             result = self._body()
-        results.put(row, result)
+        with trace.stage("copy", end=True):
+            results.put(row, result)
 
 
 # Drivers by the id of the state object they were loaded from or returned
@@ -291,24 +323,28 @@ def run(owner, states, step, key, Ks, sources, n: int, generators=None):
         drivers.append(d)
     drivers = tuple(drivers)
     register(owner, drivers)
+    traced = trace.marking() and drivers[0].cuda
+    if traced:
+        drivers[0].traced()
     results = ResultStack((b_count, n))
-    if not drivers[0].cuda:
+    caller = None
+    if drivers[0].cuda:
+        caller = torch.cuda.current_stream(Ks[0].device)
+        results.allocate(drivers[0].out)
+    with trace.span("load"):
         for b, d in enumerate(drivers):
-            d.load(states[b], Ks[b], sources[b])
-            for i in range(n):
-                d.frame(sources[b], i, results, (b, i))
-        return [clone_state(d.state) for d in drivers], results.tree(), drivers
-    caller = torch.cuda.current_stream(Ks[0].device)
-    results.allocate(drivers[0].out)
-    for b, d in enumerate(drivers):
-        d.stream.wait_stream(caller)
-        with torch.cuda.stream(d.stream):
-            d.load(states[b], Ks[b], sources[b])
-    for i in range(n):
-        for b, d in enumerate(drivers):
-            with torch.cuda.stream(d.stream):
-                d.frame(sources[b], i, results, (b, i))
-    for d in drivers:
-        caller.wait_stream(d.stream)
-    return [clone_state(d.state) for d in drivers], results.tree(), drivers
-
+            if caller is not None:
+                d.stream.wait_stream(caller)
+            with d.on_stream():
+                d.load(states[b], Ks[b], sources[b])
+    with trace.span("issue"):
+        for i in range(n):
+            for b, d in enumerate(drivers):
+                with d.on_stream():
+                    d.frame(sources[b], i, results, (b, i), traced)
+    if caller is not None:
+        for d in drivers:
+            caller.wait_stream(d.stream)
+    with trace.span("unload"), trace.stage("copy", end=True):
+        out = [clone_state(d.state) for d in drivers]
+    return out, results.tree(), drivers

@@ -73,6 +73,7 @@ from dvo_tpu_torch.models.mapper import (
 from dvo_tpu_torch.models.tracker import TrackResult, track
 from dvo_tpu_torch.ops.depth_filter import draw_reset_depth
 from dvo_tpu_torch.ops.image import cull_image, cull_intrinsic
+from dvo_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,23 +170,56 @@ def monocular_step(state: VOState, gray, mask, K, cfg: DVOConfig = DVOConfig.mon
                    reset_depth: Optional[torch.Tensor] = None):
     """One frame: track -> pose -> map -> regularize.  ``reset_depth`` is
     the depth filter's reset plane at the base level; drawn from the
-    state's generator when absent.  Returns (state', StepResult)."""
+    state's generator when absent.  Returns (state', StepResult).  Traced
+    (``utils/trace``), its stages are ``frame_build``, ``pose`` (the warm
+    start), ``track``, ``pose``, ``map`` (with the pose table's ``pose``
+    inside) and ``pose``."""
     device = state.ref.xi.device
     gray, mask, K = (torch.as_tensor(x, device=device) for x in (gray, mask, K))
-    frame = build_tracking_frame(gray, mask, K, cfg.pyramid.levels, cfg.pyramid.culls,
-                                 state.frame_count)
+    with trace.stage("frame_build"):
+        frame = build_tracking_frame(gray, mask, K, cfg.pyramid.levels, cfg.pyramid.culls,
+                                     state.frame_count)
 
     # --- tracking (system.hpp:57-58) ---
     xi0 = None
     if cfg.tracker.warm_start:
-        xi0 = lie.compose(state.prev_rel, state.vel)
-        xi0 = torch.where(torch.linalg.vector_norm(xi0) < cfg.tracker.warm_start_max_norm,
-                          xi0, 0.0)
-    tr = track(frame, state.ref, cfg.tracker, xi0=xi0)
-    frame = with_pose(frame, tr.xi, state.ref.xi)
-    vel = lie.compose(-state.prev_rel, tr.xi)
+        with trace.stage("pose"):
+            xi0 = lie.compose(state.prev_rel, state.vel)
+            xi0 = torch.where(torch.linalg.vector_norm(xi0) < cfg.tracker.warm_start_max_norm,
+                              xi0, 0.0)
+    with trace.stage("track"):
+        tr = track(frame, state.ref, cfg.tracker, xi0=xi0)
+    with trace.stage("pose"):
+        frame = with_pose(frame, tr.xi, state.ref.xi)
+        vel = lie.compose(-state.prev_rel, tr.xi)
+    with trace.stage("map"):
+        ref, history, need_kf, stats, ba = _map(state, frame, tr, cfg, reset_depth, device)
+    with trace.stage("pose"):
+        new_state = VOState(
+            history=history, ref=ref, generator=state.generator,
+            frame_count=state.frame_count + 1,
+            prev_rel=torch.where(need_kf, 0.0, tr.xi),
+            vel=vel,
+        )
+        result = StepResult(
+            # A promoted frame is the new reference, whose pose BA may have
+            # refined: that pose is the one emitted.
+            T_world=lie.se3_exp(torch.where(need_kf, ref.xi, frame.xi)),
+            relative_xi=tr.xi,
+            is_keyframe=need_kf,
+            tracking=tr,
+            mapping=stats,
+            **ba,
+        )
+    return new_state, result
 
-    # --- mapping (mapper.cpp:16-33): both branches, selected on the device ---
+
+def _map(state: VOState, frame: Frame, tr: TrackResult, cfg: DVOConfig, reset_depth, device):
+    """The monocular step's mapping (mapper.cpp:16-33): the keyframe
+    policy, both branches (promote; the depth update) selected on the
+    device, BA where enabled, and the new reference's maps regularised.
+    Returns (the new reference, ring, need_kf, the update's statistics,
+    the BA fields)."""
     need_kf = need_new_keyframe(tr.xi, frame.frame_id, state.ref.frame_id, cfg.mapper)
     base = state.ref.base
     if reset_depth is None:
@@ -233,24 +267,7 @@ def monocular_step(state: VOState, gray, mask, K, cfg: DVOConfig = DVOConfig.mon
     # --- the new maps on every level, the base depth regularised
     # (frame.cpp:39-61, mapper.cpp:30,139-144): one launch on CUDA ---
     ref = with_regularized_depth(ref, d, s, age, cfg.mapper)
-
-    new_state = VOState(
-        history=history, ref=ref, generator=state.generator,
-        frame_count=state.frame_count + 1,
-        prev_rel=torch.where(need_kf, 0.0, tr.xi),
-        vel=vel,
-    )
-    result = StepResult(
-        # A promoted frame is the new reference, whose pose BA may have
-        # refined: that pose is the one emitted.
-        T_world=lie.se3_exp(pick(ref.xi, frame.xi)),
-        relative_xi=tr.xi,
-        is_keyframe=need_kf,
-        tracking=tr,
-        mapping=stats,
-        **ba,
-    )
-    return new_state, result
+    return ref, history, need_kf, stats, ba
 
 
 def _cull_chunk(cfg: DVOConfig, K, *stacks):
@@ -376,10 +393,18 @@ def monocular_run(state: VOState, grays, masks, K, cfg: DVOConfig = DVOConfig.mo
     window slots) and cannot be captured: that chunk runs the eager step
     loop (``_eager_run``), the only eager case on the card."""
     device = state.ref.xi.device
+    with trace.chunk(1, device):
+        return _monocular_run(state, grays, masks, K, cfg, reset_depths)
+
+
+def _monocular_run(state: VOState, grays, masks, K, cfg: DVOConfig, reset_depths):
+    """``monocular_run`` inside its caller's ``dvo.chunk`` span."""
+    device = state.ref.xi.device
     grays, masks, K = (torch.as_tensor(x, device=device) for x in (grays, masks, K))
     if reset_depths is not None:
         reset_depths = torch.as_tensor(reset_depths, device=device)
-    cfg, K, (grays, masks) = _cull_chunk(cfg, K, grays, masks)
+    with trace.span("cull"), trace.stage("frame_build", end=True):
+        cfg, K, (grays, masks) = _cull_chunk(cfg, K, grays, masks)
     if cfg.ba.enabled:
         return _eager_run(state, grays.shape[0], lambda st, i: monocular_step(
             st, grays[i], masks if masks.dim() == 2 else masks[i], K, cfg,
@@ -419,29 +444,35 @@ def rgbd_step(state: RGBDState, gray, mask, depth, sigma, K,
               cfg: DVOConfig = DVOConfig.rgbd()):
     """Track against the previous frame, which this frame then replaces
     (system.hpp:77-93).  Returns (state', StepResult with T_world
-    composed)."""
+    composed).  Traced, its stages are ``frame_build``, ``pose`` (the warm
+    start), ``track`` and ``pose``."""
     device = state.ref.xi.device
     gray, mask, depth, sigma, K = (torch.as_tensor(x, device=device)
                                    for x in (gray, mask, depth, sigma, K))
-    frame = build_frame_with_depth(gray, mask, depth, sigma, K, cfg.pyramid.levels,
-                                   cfg.pyramid.culls, state.frame_count)
+    with trace.stage("frame_build"):
+        frame = build_frame_with_depth(gray, mask, depth, sigma, K, cfg.pyramid.levels,
+                                       cfg.pyramid.culls, state.frame_count)
     xi0 = None
     if cfg.tracker.warm_start:
-        # Frame to frame, the previous twist is the constant-velocity prior.
-        xi0 = torch.where(
-            torch.linalg.vector_norm(state.vel) < cfg.tracker.warm_start_max_norm,
-            state.vel, 0.0)
-    tr = track(frame, state.ref, cfg.tracker, xi0=xi0)
-    frame = with_pose(frame, tr.xi, state.ref.xi)
-    result = StepResult(
-        T_world=lie.se3_exp(frame.xi),
-        relative_xi=tr.xi,
-        is_keyframe=torch.ones((), dtype=torch.bool, device=device),
-        tracking=tr,
-        mapping=DepthUpdateStats.zero(device),
-        **_no_ba(device),
-    )
-    return RGBDState(ref=frame, frame_count=state.frame_count + 1, vel=tr.xi), result
+        with trace.stage("pose"):
+            # Frame to frame, the previous twist is the constant-velocity prior.
+            xi0 = torch.where(
+                torch.linalg.vector_norm(state.vel) < cfg.tracker.warm_start_max_norm,
+                state.vel, 0.0)
+    with trace.stage("track"):
+        tr = track(frame, state.ref, cfg.tracker, xi0=xi0)
+    with trace.stage("pose"):
+        frame = with_pose(frame, tr.xi, state.ref.xi)
+        result = StepResult(
+            T_world=lie.se3_exp(frame.xi),
+            relative_xi=tr.xi,
+            is_keyframe=torch.ones((), dtype=torch.bool, device=device),
+            tracking=tr,
+            mapping=DepthUpdateStats.zero(device),
+            **_no_ba(device),
+        )
+        new_state = RGBDState(ref=frame, frame_count=state.frame_count + 1, vel=tr.xi)
+    return new_state, result
 
 
 def _rgbd_chunk(owner, states, grays, masks, depths, sigmas, Ks, cfg: DVOConfig):
@@ -467,10 +498,17 @@ def rgbd_run(state: RGBDState, grays, masks, depths, sigmas, K,
     driver as ``monocular_run``'s does.  Returns (state', StepResult with a
     leading N axis on every field)."""
     device = state.ref.xi.device
-    grays, masks, depths, sigmas, K = (torch.as_tensor(x, device=device)
-                                       for x in (grays, masks, depths, sigmas, K))
-    cfg, K, (grays, masks, depths, sigmas) = _cull_chunk(cfg, K, grays, masks, depths,
-                                                         sigmas)
+    with trace.chunk(1, device):
+        grays, masks, depths, sigmas, K = (torch.as_tensor(x, device=device)
+                                           for x in (grays, masks, depths, sigmas, K))
+        with trace.span("cull"), trace.stage("frame_build", end=True):
+            cfg, K, (grays, masks, depths, sigmas) = _cull_chunk(cfg, K, grays, masks, depths,
+                                                                 sigmas)
+        return _rgbd_single(state, grays, masks, depths, sigmas, K, cfg)
+
+
+def _rgbd_single(state: RGBDState, grays, masks, depths, sigmas, K, cfg: DVOConfig):
+    """The graphed RGB-D chunk of one stream, culled."""
     states, res, drivers = _rgbd_chunk(state, [state], grays[None], masks[None], depths[None],
                                        sigmas[None], [K], cfg)
     graphed.register(states[0], drivers)
@@ -500,11 +538,13 @@ def rgbd_run_raw(state: RGBDState, grays, masks, depths_raw, K,
     conversion (integer strides commute with the scale), so only the culled
     pixels are converted, on the device."""
     device = state.ref.xi.device
-    grays, masks, depths_raw, K = (torch.as_tensor(x, device=device)
-                                   for x in (grays, masks, depths_raw, K))
-    cfg, K, (grays, masks, depths_raw) = _cull_chunk(cfg, K, grays, masks, depths_raw)
-    depths, sigmas = raw_depth(depths_raw, depth_scale, depth_sigma)
-    return rgbd_run(state, grays, masks, depths, sigmas, K, cfg)
+    with trace.chunk(1, device):
+        grays, masks, depths_raw, K = (torch.as_tensor(x, device=device)
+                                       for x in (grays, masks, depths_raw, K))
+        with trace.span("cull"), trace.stage("frame_build", end=True):
+            cfg, K, (grays, masks, depths_raw) = _cull_chunk(cfg, K, grays, masks, depths_raw)
+            depths, sigmas = raw_depth(depths_raw, depth_scale, depth_sigma)
+        return _rgbd_single(state, grays, masks, depths, sigmas, K, cfg)
 
 
 # ------------------------------------------------------------------- batched
@@ -547,21 +587,30 @@ def monocular_run_batched(states: VOState, grays, masks, K,
     turn.  Returns (the stack of states', StepResult with leading (B, N)
     axes)."""
     device = states.ref.xi.device
-    grays, masks, K = (torch.as_tensor(x, device=device) for x in (grays, masks, K))
-    if reset_depths is not None:
-        reset_depths = torch.as_tensor(reset_depths, device=device)
-    streams = unstack_states(states)
-    if cfg.ba.enabled:
-        runs = [monocular_run(st, grays[b], masks[b], k, cfg,
-                              None if reset_depths is None else reset_depths[b])
-                for b, (st, k) in enumerate(zip(streams, _per_stream_K(K, len(streams))))]
-        return stack_states([r[0] for r in runs]), _stack([r[1] for r in runs])
-    cfg, K, (grays, masks) = _cull_chunk(cfg, K, grays, masks)
-    new, res, drivers = _mono_chunk(states, streams, grays, masks,
-                                    _per_stream_K(K, len(streams)), cfg, reset_depths)
-    out = stack_states(new)
+    with trace.chunk(states.frame_count.shape[0], device):
+        grays, masks, K = (torch.as_tensor(x, device=device) for x in (grays, masks, K))
+        if reset_depths is not None:
+            reset_depths = torch.as_tensor(reset_depths, device=device)
+        streams = unstack_states(states)
+        if cfg.ba.enabled:
+            runs = [_monocular_run(st, grays[b], masks[b], k, cfg,
+                                   None if reset_depths is None else reset_depths[b])
+                    for b, (st, k) in enumerate(zip(streams, _per_stream_K(K, len(streams))))]
+            return stack_states([r[0] for r in runs]), _stack([r[1] for r in runs])
+        with trace.span("cull"), trace.stage("frame_build", end=True):
+            cfg, K, (grays, masks) = _cull_chunk(cfg, K, grays, masks)
+        new, res, drivers = _mono_chunk(states, streams, grays, masks,
+                                        _per_stream_K(K, len(streams)), cfg, reset_depths)
+        return _stacked(new, drivers), res
+
+
+def _stacked(states, drivers):
+    """The stack of a batched chunk's B states, with the chunk's drivers
+    registered: the rest of the chunk's unload."""
+    with trace.span("unload"), trace.stage("copy", end=True):
+        out = stack_states(states)
     graphed.register(out, drivers)
-    return out, res
+    return out
 
 
 def rgbd_run_batched(states: RGBDState, grays, masks, depths, sigmas, K,
@@ -571,16 +620,16 @@ def rgbd_run_batched(states: RGBDState, grays, masks, depths, sigmas, K,
     (B, H, W); K (3, 3) or (B, 3, 3)), as ``monocular_run_batched``.
     Returns (the stack of states', StepResult with leading (B, N) axes)."""
     device = states.ref.xi.device
-    grays, masks, depths, sigmas, K = (torch.as_tensor(x, device=device)
-                                       for x in (grays, masks, depths, sigmas, K))
-    cfg, K, (grays, masks, depths, sigmas) = _cull_chunk(cfg, K, grays, masks, depths,
-                                                         sigmas)
-    streams = unstack_states(states)
-    new, res, drivers = _rgbd_chunk(states, streams, grays, masks, depths, sigmas,
-                                    _per_stream_K(K, len(streams)), cfg)
-    out = stack_states(new)
-    graphed.register(out, drivers)
-    return out, res
+    with trace.chunk(states.frame_count.shape[0], device):
+        grays, masks, depths, sigmas, K = (torch.as_tensor(x, device=device)
+                                           for x in (grays, masks, depths, sigmas, K))
+        with trace.span("cull"), trace.stage("frame_build", end=True):
+            cfg, K, (grays, masks, depths, sigmas) = _cull_chunk(cfg, K, grays, masks, depths,
+                                                                 sigmas)
+        streams = unstack_states(states)
+        new, res, drivers = _rgbd_chunk(states, streams, grays, masks, depths, sigmas,
+                                        _per_stream_K(K, len(streams)), cfg)
+        return _stacked(new, drivers), res
 
 
 # ----------------------------------------------------------- state exchange

@@ -71,6 +71,8 @@ _SIGNATURES = {
     "dvo_regularize_cull": ([_P] * 3 + [_I] * 4 + [_F, _F, _P], _I),
     "dvo_floor_empty": ([_P], _I),
     "dvo_floor_copy": ([_P, _P, _I, _P], _I),
+    "dvo_stage_load": ([], _I),
+    "dvo_stage_mark": ([_I, _P], _I),
 }
 
 
@@ -106,7 +108,7 @@ def capture_graph(fn, warmup: int = 2, stream=None, keep=(), generators=()):
     global CAPTURES
     side = torch.cuda.Stream() if stream is None else stream
     current = torch.cuda.current_stream()
-    saved = [t.clone() for t in keep]
+    saved = [t.clone() for t in keep] if warmup else []
     drawn = [g.get_state() for g in generators]
     before = dict(LAUNCHES)
     side.wait_stream(current)

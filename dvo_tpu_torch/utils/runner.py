@@ -76,6 +76,7 @@ from dvo_tpu_torch.utils.datasets import (
     decode_gray,
     remap_nearest,
 )
+from dvo_tpu_torch.utils import trace
 from dvo_tpu_torch.utils.metrics import (
     device_sync,
     fetch,
@@ -217,24 +218,35 @@ def _run_chunks(n_steps, chunk, staging, fill_row, dispatch, on_frame, on_chunk_
     The pose graph's hooks: ``before_dispatch()`` runs just before each
     chunk's dispatch (where a live refinement's corrections reach the device
     state); ``make_aux()`` just after it (its device tensor rides the drain
-    and comes back in ``on_chunk_done``: the chunk's ring snapshot)."""
+    and comes back in ``on_chunk_done``: the chunk's ring snapshot).
+
+    Traced (``utils/trace``), each chunk shows as the host spans
+    ``dvo.fill`` (the staging rows from the stream), ``dvo.upload``,
+    ``dvo.dispatch`` (the chunk's call) and ``dvo.drain`` (the results'
+    copy started, the previous chunk's rows consumed)."""
     drain = _ChunkDrain(on_frame, on_chunk_done)
     done = 0
     chunk_walls = []
     t_prev = time.perf_counter()
     for _ in range(n_steps // chunk):
-        bufs = staging.acquire()
-        for k in range(chunk):
-            fill_row(bufs, k)
+        with trace.span("fill"):
+            bufs = staging.acquire()
+            for k in range(chunk):
+                fill_row(bufs, k)
         if before_dispatch is not None:
             before_dispatch()
-        res = dispatch(staging.upload())
-        drain.push(res, done, chunk, make_aux() if make_aux is not None else None)
+        with trace.span("upload"):
+            uploaded = staging.upload()
+        with trace.span("dispatch"):
+            res = dispatch(uploaded)
+        with trace.span("drain"):
+            drain.push(res, done, chunk, make_aux() if make_aux is not None else None)
         done += chunk
         t_now = time.perf_counter()
         chunk_walls.append(t_now - t_prev)
         t_prev = t_now
-    drain.finish()
+    with trace.span("drain"):
+        drain.finish()
     if chunk_walls:
         # The final drain waits for the last chunk's execution.
         chunk_walls[-1] += time.perf_counter() - t_prev

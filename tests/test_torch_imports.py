@@ -109,7 +109,8 @@ def test_build_command_targets_sm90a_in_ignored_dir(monkeypatch):
     assert all("-fmad=false" in cmd and "-c" in cmd for cmd in cmds)
     assert "-shared" in link and link[-len(objs):] == [str(o) for o in objs]
     assert {Path(c).name for cmd in cmds for c in cmd if c.endswith(".cu")} == {
-        "gn.cu", "gn_level.cu", "epipolar.cu", "regularize.cu", "framebuild.cu", "floor.cu"}
+        "gn.cu", "gn_level.cu", "epipolar.cu", "regularize.cu", "framebuild.cu", "floor.cu",
+        "stage.cu"}
     assert {p.name for p in _build._headers()} == {
         "dvo_kernels.h", "gn_pixel.cuh", "gn_step.cuh", "epipolar_pixel.cuh",
         "regularize_pixel.cuh", "framebuild_cull.cuh"}
