@@ -217,7 +217,20 @@ shorter call while working on the back end; it prints no result line);
 ``--streams`` runs phases 1, 2 and streams only (for the scaling turns under
 another environment, e.g. ``CUDA_DEVICE_MAX_CONNECTIONS=32``; no result
 line); ``--sharded`` runs phases 1, 2 and the sharded step only (on a
-machine with four cards its NCCL run too; no result line).
+machine with four cards its NCCL run too; no result line); ``--pose`` runs
+phases 1, 2 and pose only and prints the pose rows as its JSON line.
+     pose     — ``csrc/pose.cu``'s entries (``ops/cuda/pose``) against their
+                plain versions on the card at the main path's shapes (a
+                ring of 8): POSE_DRAWS draws of twists as a run makes them
+                (and the warm start's gate on both sides, both promotion
+                branches), each bitwise the plain version's (and so within
+                ENTRY_TOL * max(1, |plain|)), the same bits on a second
+                launch; device us and ops of a
+                launch, call ms of the launch and of the plain version, the
+                plain version's device ops, the bound, the launch floor.
+                Every path below launches the pose entries (``pose`` in
+                MONO_KERNELS, RGBD_KERNELS): 3 a mono frame, 2 an RGB-D
+                frame on the main paths.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then a JSON line of per-kernel results and, last, the device JSON
 line.  Any failure raises (exit code != 0) before the last line is printed.
@@ -240,6 +253,7 @@ import time
 import traceback
 import warnings
 import zlib
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -357,6 +371,14 @@ DECODE_THREADS = (8, 4, 2, 1)  # PIL decode threads the cli phase compares
 # The regulariser's sweep also on maps of these shapes (regularize_sweep.maps):
 # one no path gives it, and one with partial warps and blocks.
 REGULARIZE_SHAPES = ((212, 256), (37, 53))
+# csrc/pose.cu against ops/cuda/pose's plain versions: elementwise within
+# ENTRY_TOL * max(1, |plain|), and on these draws bit for bit.  The kernel
+# rounds its products and sums as the library rounds the plain version's
+# batched matmuls and reductions on this card (csrc/pose.cu's note); the
+# monocular mapper follows float noise, so the benchmark's judge, whose
+# reference computes as the plain version does, needs the same bits.
+ENTRY_TOL = 4e-6
+POSE_DRAWS = 64
 
 
 def phase(name: str, msg: str) -> None:
@@ -2824,6 +2846,127 @@ def cli_phase(dev, card_line, grays, K, r_grays, r_counts, r_K, cfg, cfg_r, by_p
     return summary
 
 
+def pose_inputs(dev, g):
+    """One draw of what the step hands the pose entries at the main path's
+    shapes: twists as a run makes them (a world pose, a frame's motion, the
+    previous one, a ring of 8 keyframe poses), K of the culled 160x120
+    base, and a promotion flag."""
+    def twist(scale_v, scale_w):
+        x = torch.randn(6, generator=g)
+        return torch.cat([x[:3] * scale_v, x[3:] * scale_w])
+    world = twist(0.5, 0.3)
+    hist = torch.stack([world + twist(0.05, 0.02) for _ in range(8)])
+    K = torch.tensor([[150.0, 0.0, 80.0], [0.0, 150.0, 60.0], [0.0, 0.0, 1.0]])
+    out = dict(ref_xi=world, rel_xi=twist(0.02, 0.005), prev_rel=twist(0.02, 0.005),
+               vel=twist(0.02, 0.005), hist_xi=hist, K=K,
+               need_kf=torch.tensor(bool(torch.rand((), generator=g) < 0.5)))
+    out = {k: v.to(dev) for k, v in out.items()}
+    out["gate"] = 2.0
+    return out
+
+
+def pose_calls(inp, frame_xi):
+    """Each timed form of the pose entries: name -> (its work() arguments,
+    its call on ``m``: ``ops/cuda/pose`` for the kernel, ``pose_plain()``
+    for the plain versions)."""
+    from dvo_tpu_torch import lie
+
+    # The gate at twice or half the gated twist's norm: kept or zeroed.
+    gate_rgbd = inp["gate"] * float(torch.linalg.vector_norm(inp["vel"]))
+    gate_mono = inp["gate"] * float(torch.linalg.vector_norm(
+        lie.compose(inp["prev_rel"], inp["vel"])))
+    return {
+        "warm_rgbd": (("warm", 8, False), lambda m: m.warm(inp["vel"], gate_rgbd)),
+        "warm_mono": (("warm", 8, True),
+                      lambda m: m.warm(inp["vel"], gate_mono, prev_rel=inp["prev_rel"])),
+        "track_mono": (("track", 8, True),
+                       lambda m: m.track(inp["ref_xi"], inp["rel_xi"], prev_rel=inp["prev_rel"])),
+        "track_rgbd": (("track", 8, False),
+                       lambda m: m.track(inp["ref_xi"], inp["rel_xi"], world=True)),
+        "table": (("table", 8), lambda m: m.table(inp["K"], frame_xi, inp["rel_xi"],
+                                                  inp["hist_xi"])),
+        "emit": (("emit",), lambda m: m.emit(inp["need_kf"], inp["ref_xi"], frame_xi,
+                                             inp["rel_xi"])),
+    }
+
+
+def pose_plain():
+    """The plain versions of ``ops/cuda/pose``'s entries, under the entries'
+    names."""
+    from dvo_tpu_torch.ops.cuda import pose
+
+    return SimpleNamespace(warm=pose.warm_plain, track=pose.track_plain,
+                           table=pose.table_plain, emit=pose.emit_plain)
+
+
+def pose_phase(dev, card_line):
+    """``csrc/pose.cu`` against the plain versions (module docstring,
+    ``pose``).  Returns the kernel rows."""
+    from dvo_tpu_torch import lie
+    from dvo_tpu_torch.ops.cuda import _build, pose
+    from dvo_tpu_torch.tools import framebuild_floor
+
+    kernel, plain = pose, pose_plain()
+    g = torch.Generator().manual_seed(SEED)
+    gaps, bitwise = {}, {}
+    for draw in range(POSE_DRAWS):
+        inp = pose_inputs(dev, g)
+        if draw % 2:   # the gate's other side, the other promotion branch
+            inp["need_kf"], inp["gate"] = ~inp["need_kf"], 0.5
+        calls = pose_calls(inp, lie.compose(inp["ref_xi"], inp["rel_xi"]))
+        for name, (_, call) in calls.items():
+            got, again, want = (_flat(call(m)) for m in (kernel, kernel, plain))
+            torch.cuda.synchronize()
+            bitwise[name] = bitwise.get(name, 0) + all(map(torch.equal, got, want))
+            for k, a, w in zip(got, again, want):
+                if not torch.equal(k, a):
+                    raise AssertionError(f"pose {name}: two launches gave different bits")
+                gap = float(((k - w).abs() / torch.clamp(w.abs(), min=1.0)).max())
+                gaps[name] = max(gaps.get(name, 0.0), gap)
+                if gap > ENTRY_TOL:
+                    raise AssertionError(f"pose {name}: {gap:.3g} from the plain version "
+                                         f"(tolerance {ENTRY_TOL:g}) in draw {draw}")
+                if k.shape == (4, 4) and not torch.equal(
+                        k[3].cpu(), torch.tensor([0.0, 0.0, 0.0, 1.0])):
+                    raise AssertionError(f"pose {name}: last row {k[3].tolist()}")
+                if k.shape == (10, 16) and (k[0, 9:].any() or k[1, 13:].any() or k[2:, 15].any()):
+                    raise AssertionError(f"pose {name}: an unused column is not zero")
+    if any(n != POSE_DRAWS for n in bitwise.values()):
+        raise AssertionError(f"pose: draws bitwise the plain version's, of {POSE_DRAWS}: "
+                             f"{bitwise}")
+    inp = pose_inputs(dev, g)
+    calls = pose_calls(inp, lie.compose(inp["ref_xi"], inp["rel_xi"]))
+    rows = []
+    for name, (work_args, call) in calls.items():
+        _build.reset_launches()
+        call(kernel)
+        torch.cuda.synchronize()
+        if _build.LAUNCHES["pose"] != 1:
+            raise AssertionError(f"pose {name}: {_build.LAUNCHES['pose']} launches, expected 1")
+        ops, us = device_profile(lambda: call(kernel), 20, True)
+        plain_ops, plain_us = device_profile(lambda: call(plain), 5, True)
+        ms, plain_ms = timed(lambda: call(kernel)), timed(lambda: call(plain))
+        nbytes, flops = pose.work(*work_args)
+        fl = framebuild_floor.floor_us(nbytes, device_profile)
+        row = with_bound(dict(name=f"pose_{name}", route="cuda", counter="pose",
+                              source="dvo_tpu_torch/csrc/pose.cu",
+                              replaces="none: dvo_tpu/lie.py, left to XLA's fusion",
+                              device_us=us, device_ops=ops, ms=ms, plain_ms=plain_ms,
+                              plain_device_ops=plain_ops, plain_device_us=plain_us,
+                              max_rel_gap=gaps[name], draws=POSE_DRAWS,
+                              bitwise_draws=bitwise[name],
+                              launch_floor_us=fl["empty_us"], copy_floor_us=fl["copy_us"],
+                              copy_floor_bytes=fl["copy_bytes"]), nbytes, flops)
+        rows.append(row)
+        phase("pose", f"{name}: device {us:.2f} us in {ops:g} ops (plain {plain_ops:g} ops, "
+                      f"{plain_us:.1f} us), call {ms:.4f} ms vs plain {plain_ms:.4f} ms, launch "
+                      f"floor {fl['empty_us']:.2f} us, bound {row['bound_us']:.5f} us "
+                      f"({row['bound_by']}), max gap {gaps[name]:.3g} over {POSE_DRAWS} draws "
+                      f"(tolerance {ENTRY_TOL:g}), {bitwise[name]} of them bitwise the plain "
+                      f"version's, repeats bitwise, on {card_line}")
+    return rows
+
+
 def run_path(name, fn):
     """Run one path with every launch count set to 0 just before; returns
     (its output, seconds, the counts read just after)."""
@@ -2837,20 +2980,26 @@ def run_path(name, fn):
     return out, time.perf_counter() - t0, dict(_build.LAUNCHES)
 
 
-MONO_KERNELS = ("gn_level", "epipolar", "regularize_cull", "framebuild")
-MONO_FIELDS_KERNELS = ("gn_level", "epipolar", "regularize", "framebuild")
-RGBD_KERNELS = ("gn_level", "framebuild")
+MONO_KERNELS = ("gn_level", "epipolar", "regularize_cull", "framebuild", "pose")
+MONO_FIELDS_KERNELS = ("gn_level", "epipolar", "regularize", "framebuild", "pose")
+RGBD_KERNELS = ("gn_level", "framebuild", "pose")
+POSE_PER_FRAME = {"mono": 3, "rgbd": 2}   # track, table, emit; warm, track
 
 
-def require_launched(path, launches, names, levels_per_frame=None, mono=None):
+def require_launched(path, launches, names, levels_per_frame=None, mono=None, pose=None):
     """Every kernel in ``names`` launched on the path; with
     ``levels_per_frame`` = (levels, frames), the level kernel exactly once
     per level and frame, and the stepwise kernels not at all; with ``mono`` =
     (route, frames, keyframes, first-frame builds), the mapper's launches of
-    a monocular run on that route ("fused" or "fields"), exactly."""
+    a monocular run on that route ("fused" or "fields"), exactly; with
+    ``pose`` = (launches a frame, frames), the pose entries' launches,
+    exactly."""
     for name in names:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the {path} path")
+    if pose is not None and launches["pose"] != pose[0] * pose[1]:
+        raise AssertionError(f"{path}: expected {pose[0]} pose launches a frame over "
+                             f"{pose[1]} frames: {launches}")
     if levels_per_frame is not None:
         levels, frames = levels_per_frame
         if launches["gn_level"] != levels * frames or launches["gn"] or launches["gn_step"]:
@@ -3409,6 +3558,10 @@ def main() -> None:
     if "--sharded" in sys.argv[1:]:
         sharded_phase(dev, card_line)
         return
+    if "--pose" in sys.argv[1:]:
+        print(json.dumps(plain_json({"pose": pose_phase(dev, card_line), "card": card_line})))
+        return
+    pose_rows = pose_phase(dev, card_line)
 
     # 3. kernels, on the state a warm-up run leaves (ring filled by
     # promotions), a state the kernels under test did not make: the run is
@@ -3529,7 +3682,8 @@ def main() -> None:
     if not bool((accepted[~kf] > 0).any()):
         raise AssertionError("no depth update accepted an observation")
     require_launched("mono", launches, MONO_KERNELS, (cfg.pyramid.levels, N_FRAMES),
-                     mono=("fused", N_FRAMES, int(kf.sum()), 0))   # primed: init untimed
+                     mono=("fused", N_FRAMES, int(kf.sum()), 0),   # primed: init untimed
+                     pose=(POSE_PER_FRAME["mono"], N_FRAMES))
     ms_frame = 1e3 * elapsed / N_FRAMES
     by_path = {"mono": launches}
     phase("main", f"{N_FRAMES} frames 640x480 -> 160x120, {int(kf.sum())} promotions, "
@@ -3698,7 +3852,8 @@ def main() -> None:
         raise AssertionError("rgbd: non-finite pose")
     step = torch.tensor(RGBD_STEP, device=dev)
     step_err = torch.linalg.vector_norm(res_r.relative_xi - step, dim=1)
-    require_launched("rgbd", launches, RGBD_KERNELS, (cfg_r.pyramid.levels, RGBD_FRAMES))
+    require_launched("rgbd", launches, RGBD_KERNELS, (cfg_r.pyramid.levels, RGBD_FRAMES),
+                     pose=(POSE_PER_FRAME["rgbd"], RGBD_FRAMES))
     if launches["epipolar"] or launches["regularize"] or launches["regularize_cull"]:
         raise AssertionError(f"rgbd: the mapper's kernels ran: {launches}")
     ms_rgbd = 1e3 * elapsed / RGBD_FRAMES
@@ -3883,6 +4038,7 @@ def main() -> None:
         phase("kernels", f"{k['name']}: device {k['device_us']:.2f} us, launch floor "
                          f"{fl['empty_us']:.2f} us, a copy of its {fl['copy_bytes']} B "
                          f"{fl['copy_us']:.2f} us, bound {k['bound_us']:.3f} us on {card_line}")
+    kernels.extend(pose_rows)     # their floors taken in the pose phase
     frames_by_path = {"mono": N_FRAMES, "rgbd": RGBD_FRAMES, "mono_stepwise": STEPWISE_FRAMES,
                       "rgbd_stepwise": STEPWISE_FRAMES, "mono_fields": N_FRAMES,
                       "mono_ba": N_FRAMES, "streams_mono": STREAMS * STREAM_FRAMES,

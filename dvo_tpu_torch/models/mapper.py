@@ -26,7 +26,7 @@ from dvo_tpu_torch import lie
 from dvo_tpu_torch.config import EPSILON, InitConfig, MapperConfig, resolve_device
 from dvo_tpu_torch.models.frame import Scene
 from dvo_tpu_torch.models.history import KeyframeHistory, born_slot
-from dvo_tpu_torch.ops.cuda import epipolar
+from dvo_tpu_torch.ops.cuda import epipolar, pose
 from dvo_tpu_torch.ops.cuda.regularize import regularize  # noqa: F401  (re-export)
 from dvo_tpu_torch.ops.warp import back_project, pixel_grid, project
 from dvo_tpu_torch.utils import trace
@@ -105,26 +105,12 @@ def pose_table(K, obj_xi_w, rel_xi, history: KeyframeHistory):
     row 1 ``T_rel = exp(rel_xi)`` (R row-major, then t) and ``rel_xi[2]``,
     row 2 + c, for ring slot c, ``T_es = exp(-r_xi)`` with ``r_xi =
     compose(obj_xi_w, -history.xi[c])`` (R, then t) and ``t_tw =
-    -r_xi[:3]`` (mapper.cpp:107, implement.cpp:57-59).  All trigonometry of
-    the update is in here: the step's ``pose`` stage (``utils/trace``)."""
-    c = history.capacity
+    -r_xi[:3]`` (mapper.cpp:107, implement.cpp:57-59); columns not named
+    are zero.  All trigonometry of the update is in here: the step's
+    ``pose`` stage (``utils/trace``), one launch of ``csrc/pose.cu`` on
+    CUDA tensors (``ops/cuda/pose.table``)."""
     with trace.stage("pose"):
-        # One exp for the three twists that need one: the object frame's
-        # pose, the ring's inverse poses and the relative pose (eager
-        # PyTorch pays per op, not per row).
-        T = lie.se3_exp(torch.cat([obj_xi_w[None], -history.xi, rel_xi[None]]))
-        T_rel = T[c + 1]
-        r_xi = lie.se3_log(T[0] @ T[1:c + 1])                # compose(obj_xi_w, -xi): (C, 6)
-        T_es = lie.se3_exp(-r_xi)                            # (C, 4, 4)
-        table = torch.zeros((2 + c, epipolar.TABLE_ROW), dtype=torch.float32, device=K.device)
-        table[0, :9] = K.reshape(9)
-        table[1, :9] = T_rel[:3, :3].reshape(9)
-        table[1, 9:12] = T_rel[:3, 3]
-        table[1, 12] = rel_xi[2]
-        table[2:, :9] = T_es[:, :3, :3].reshape(c, 9)
-        table[2:, 9:12] = T_es[:, :3, 3]
-        table[2:, 12:15] = -r_xi[:, :3]
-    return table
+        return pose.table(K, obj_xi_w, rel_xi, history.xi)
 
 
 def _warp_point(K, T, x, y, d):

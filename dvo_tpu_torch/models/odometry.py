@@ -41,7 +41,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dvo_tpu_torch import lie
 from dvo_tpu_torch.config import DVOConfig
 from dvo_tpu_torch.models import graphed
 from dvo_tpu_torch.models.ba import bundle_adjust, window_from_history, window_slots
@@ -55,7 +54,6 @@ from dvo_tpu_torch.models.frame import (
     select_frame,
     with_base_depth,
     with_gradients,
-    with_pose,
     with_regularized_depth,
 )
 from dvo_tpu_torch.models.history import (
@@ -71,6 +69,7 @@ from dvo_tpu_torch.models.mapper import (
     propagate,
 )
 from dvo_tpu_torch.models.tracker import TrackResult, track
+from dvo_tpu_torch.ops.cuda import pose
 from dvo_tpu_torch.ops.depth_filter import draw_reset_depth
 from dvo_tpu_torch.ops.image import cull_image, cull_intrinsic
 from dvo_tpu_torch.utils import trace
@@ -184,27 +183,24 @@ def monocular_step(state: VOState, gray, mask, K, cfg: DVOConfig = DVOConfig.mon
     xi0 = None
     if cfg.tracker.warm_start:
         with trace.stage("pose"):
-            xi0 = lie.compose(state.prev_rel, state.vel)
-            xi0 = torch.where(torch.linalg.vector_norm(xi0) < cfg.tracker.warm_start_max_norm,
-                              xi0, 0.0)
+            xi0 = pose.warm(state.vel, cfg.tracker.warm_start_max_norm, prev_rel=state.prev_rel)
     with trace.stage("track"):
         tr = track(frame, state.ref, cfg.tracker, xi0=xi0)
     with trace.stage("pose"):
-        frame = with_pose(frame, tr.xi, state.ref.xi)
-        vel = lie.compose(-state.prev_rel, tr.xi)
+        xi, vel, _ = pose.track(state.ref.xi, tr.xi, prev_rel=state.prev_rel)
+        frame = dataclasses.replace(frame, relative_xi=tr.xi, xi=xi)
     with trace.stage("map"):
         ref, history, need_kf, stats, ba = _map(state, frame, tr, cfg, reset_depth, device)
     with trace.stage("pose"):
+        # A promoted frame is the new reference, whose pose BA may have
+        # refined: that pose is the one emitted.
+        T_world, prev_rel = pose.emit(need_kf, ref.xi, frame.xi, tr.xi)
         new_state = VOState(
             history=history, ref=ref, generator=state.generator,
-            frame_count=state.frame_count + 1,
-            prev_rel=torch.where(need_kf, 0.0, tr.xi),
-            vel=vel,
+            frame_count=state.frame_count + 1, prev_rel=prev_rel, vel=vel,
         )
         result = StepResult(
-            # A promoted frame is the new reference, whose pose BA may have
-            # refined: that pose is the one emitted.
-            T_world=lie.se3_exp(torch.where(need_kf, ref.xi, frame.xi)),
+            T_world=T_world,
             relative_xi=tr.xi,
             is_keyframe=need_kf,
             tracking=tr,
@@ -456,15 +452,14 @@ def rgbd_step(state: RGBDState, gray, mask, depth, sigma, K,
     if cfg.tracker.warm_start:
         with trace.stage("pose"):
             # Frame to frame, the previous twist is the constant-velocity prior.
-            xi0 = torch.where(
-                torch.linalg.vector_norm(state.vel) < cfg.tracker.warm_start_max_norm,
-                state.vel, 0.0)
+            xi0 = pose.warm(state.vel, cfg.tracker.warm_start_max_norm)
     with trace.stage("track"):
         tr = track(frame, state.ref, cfg.tracker, xi0=xi0)
     with trace.stage("pose"):
-        frame = with_pose(frame, tr.xi, state.ref.xi)
+        xi, _, T_world = pose.track(state.ref.xi, tr.xi, world=True)
+        frame = dataclasses.replace(frame, relative_xi=tr.xi, xi=xi)
         result = StepResult(
-            T_world=lie.se3_exp(frame.xi),
+            T_world=T_world,
             relative_xi=tr.xi,
             is_keyframe=torch.ones((), dtype=torch.bool, device=device),
             tracking=tr,

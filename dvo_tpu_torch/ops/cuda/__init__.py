@@ -1,3 +1,3 @@
 """Hand-written CUDA kernels for Hopper, one module each (``gn``,
-``gn_level``, ``epipolar``, ``regularize``, ``framebuild``), built and
-loaded by ``_build``."""
+``gn_level``, ``epipolar``, ``regularize``, ``framebuild``, ``pose``),
+built and loaded by ``_build``."""

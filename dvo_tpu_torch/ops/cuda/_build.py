@@ -37,7 +37,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=fa
 # Kernel launches since the last ``reset_launches``: each wrapper adds one
 # where it launches its kernel, and nowhere else.
 LAUNCHES = {"gn": 0, "gn_step": 0, "gn_level": 0, "epipolar": 0, "regularize": 0,
-            "framebuild": 0, "regularize_cull": 0}
+            "framebuild": 0, "regularize_cull": 0, "pose": 0}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
 # float32 outside the tensor cores.  A kernel's bound is taken against them.
@@ -73,6 +73,10 @@ _SIGNATURES = {
     "dvo_floor_copy": ([_P, _P, _I, _P], _I),
     "dvo_stage_load": ([], _I),
     "dvo_stage_mark": ([_I, _P], _I),
+    "dvo_pose_warm": ([_P] * 3 + [_F, _P], _I),
+    "dvo_pose_track": ([_P] * 6 + [_P], _I),
+    "dvo_pose_table": ([_P] * 5 + [_I, _P], _I),
+    "dvo_pose_emit": ([_P] * 6 + [_P], _I),
 }
 
 

@@ -17,7 +17,7 @@ import torch
 from dvo_tpu_torch import lie
 from dvo_tpu_torch.config import MapperConfig, TrackerConfig, resolve_device
 from dvo_tpu_torch.models import frame, mapper
-from dvo_tpu_torch.ops.cuda import _build, epipolar, framebuild, gn, gn_level, regularize
+from dvo_tpu_torch.ops.cuda import _build, epipolar, framebuild, gn, gn_level, pose, regularize
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -110,7 +110,7 @@ def test_build_command_targets_sm90a_in_ignored_dir(monkeypatch):
     assert "-shared" in link and link[-len(objs):] == [str(o) for o in objs]
     assert {Path(c).name for cmd in cmds for c in cmd if c.endswith(".cu")} == {
         "gn.cu", "gn_level.cu", "epipolar.cu", "regularize.cu", "framebuild.cu", "floor.cu",
-        "stage.cu"}
+        "stage.cu", "pose.cu"}
     assert {p.name for p in _build._headers()} == {
         "dvo_kernels.h", "gn_pixel.cuh", "gn_step.cuh", "epipolar_pixel.cuh",
         "regularize_pixel.cuh", "framebuild_cull.cuh"}
@@ -141,7 +141,8 @@ def test_library_name_tracks_sources(tmp_path, monkeypatch):
 @pytest.mark.parametrize("entry,pointers,ints,floats", [
     ("dvo_epipolar", 9, 5, 10), ("dvo_epipolar_fused", 17, 10, 11),
     ("dvo_regularize_cull", 3, 4, 2), ("dvo_regularize", 3, 2, 2), ("dvo_framebuild", 9, 5, 0),
-    ("dvo_gn_step", 6, 1, 3),
+    ("dvo_gn_step", 6, 1, 3), ("dvo_pose_warm", 3, 0, 1), ("dvo_pose_track", 6, 0, 0),
+    ("dvo_pose_table", 5, 1, 0), ("dvo_pose_emit", 6, 0, 0),
 ])
 def test_entry_signatures(entry, pointers, ints, floats):
     """The ctypes signature of each entry: its pointers, then its ints, then
@@ -287,6 +288,10 @@ def _depth_update_inputs(rng, h=12, w=16, c=2):
             MapperConfig(crop_x=(1, 14), crop_y=(1, 10)))
 
 
+def _twist(rng):
+    return torch.from_numpy((0.1 * rng.standard_normal(6)).astype(np.float32))
+
+
 def _flat(out):
     """Tensors of a kernel's output, in order (tuples, lists, per-level
     dicts, dataclasses)."""
@@ -319,6 +324,13 @@ def _flat(out):
     ("with_regularized_depth", frame.with_regularized_depth, frame.with_regularized_depth_plain,
      _regularized_inputs),
     ("depth_update", mapper.depth_update, mapper.depth_update_by_fields, _depth_update_inputs),
+    ("pose_warm", pose.warm, pose.warm_plain, lambda rng: (_twist(rng), 0.5, _twist(rng))),
+    ("pose_track", pose.track, pose.track_plain,
+     lambda rng: (_twist(rng), _twist(rng), _twist(rng), True)),
+    ("pose_table", pose.table, pose.table_plain,
+     lambda rng: (torch.eye(3), _twist(rng), _twist(rng), torch.stack([_twist(rng)] * 3))),
+    ("pose_emit", pose.emit, pose.emit_plain,
+     lambda rng: (torch.tensor(False), _twist(rng), _twist(rng), _twist(rng))),
 ])
 def test_cpu_tensors_take_the_plain_path(name, wrapper, plain, make, rng, monkeypatch):
     def no_cuda(*_, **__):
@@ -333,7 +345,8 @@ def test_cpu_tensors_take_the_plain_path(name, wrapper, plain, make, rng, monkey
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert _build.LAUNCHES == {"gn": 0, "gn_step": 0, "gn_level": 0, "epipolar": 0,
-                               "regularize": 0, "framebuild": 0, "regularize_cull": 0}
+                               "regularize": 0, "framebuild": 0, "regularize_cull": 0,
+                               "pose": 0}
 
 
 @pytest.mark.parametrize("bad,match", [
