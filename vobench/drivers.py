@@ -20,7 +20,8 @@ from vobench import rigs
 @dataclasses.dataclass
 class Inputs:
     """A cell's inputs, made from the seed: per stream the rig's frames
-    (``gray`` (B, M, H, W) uint8, ``counts`` uint16 or None) in host memory,
+    (``gray`` (B, M, H, W) uint8, ``counts`` uint16 or None) in host memory
+    (the loop lays them out for its upload),
     the mask and K on the device, the bootstrap noise (B, h, w) and the
     reset planes (B, M, h, w) on the device."""
     gray: torch.Tensor
@@ -35,8 +36,7 @@ def stream_seed(seed: int, b: int) -> int:
     return int(np.random.SeedSequence(seed, spawn_key=(b,)).generate_state(1, np.uint64)[0])
 
 
-def make_inputs(config: dict, traffic: dict, seed: int, device, pinned: bool,
-                shape=None) -> Inputs:
+def make_inputs(config: dict, traffic: dict, seed: int, device, shape=None) -> Inputs:
     """The rigs of ``traffic['streams']`` cameras, stream b on scene b
     (``shape`` overrides the configuration's input size: the CPU tests'
     small frames)."""
@@ -51,9 +51,8 @@ def make_inputs(config: dict, traffic: dict, seed: int, device, pinned: bool,
                            holes=rig["holes"])
         grays.append(g)
         counts.append(c)
-    host = lambda t: t.cpu().pin_memory() if pinned else t.cpu()
-    gray = host(torch.stack(grays))
-    count = host(torch.stack(counts)) if mode == "rgbd" else None
+    gray = torch.stack(grays).cpu()
+    count = torch.stack(counts).cpu() if mode == "rgbd" else None
     dev = torch.device(device)
     mask = torch.ones((h, w), dtype=torch.bool, device=dev)
     Kt = torch.tensor(K, dtype=torch.float32, device=dev)
@@ -98,6 +97,7 @@ class Run:
     trace: object = None         # profiling.Trace of the traced part
     memory_peak_bytes: int = 0
     inputs: object = None        # the cell's Inputs, which the judge hands the reference
+    readings: dict = None        # the host's, for standard error only (``host.report``)
 
 
 class Reservoir:

@@ -14,6 +14,12 @@ The last line of standard output is the result: ``correct``, ``attempted``,
 its per-layer metrics with ``--trace 1``), ``device`` and, traced, the
 ``breakdown``; its last key, ``checks``, holds every number the judge
 compared with its limit, which also end standard error.
+
+Before the set-up the process is placed on the card's local CPUs
+(``vobench/host.py``); after the window, lines that start ``vobench:
+host`` on standard error give the placement, the host's CPU and the card's
+clocks, the set-up's parts and the window's chunks.  They stay out of the
+result line.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+
+from vobench import host as hostinfo
 
 ROOT = Path.cwd()
 HERE = Path(__file__).resolve().parent
@@ -156,8 +164,10 @@ def main(argv=None) -> int:
 
     bench = load_benchmark()
     cell, config, traffic, e2e, layers = resolve(bench, args.workload)
+    parts = [("python", clock())]
     import torch
 
+    parts.append(("torch", clock()))
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
         print(f"vobench: {args.workload} needs {cell['chips']} CUDA device(s); "
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
@@ -165,8 +175,12 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    placement = hostinfo.place(hostinfo.card_bus_id(0))
+    parts.append(("cuda", clock()))
     run = run_cell(cell, config, traffic, args.seed, args.seconds, bool(args.trace),
                    clock=clock)
+    run.readings["setup_parts"] = parts + run.readings["setup_parts"]
+    hostinfo.report(run, placement)
     ctx = SimpleNamespace(run=run, config=config, traffic=traffic, cell=cell, trace=run.trace)
     metrics = read_metrics(layers, ctx, False) if args.trace else read_metrics(e2e, ctx, True)
     device = device_info(run, cell["chips"])

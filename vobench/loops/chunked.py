@@ -13,6 +13,16 @@ every shape the window uses; with ``trace`` a profiled part of
 from the seed, keeps the program's state before and after each for the
 judge.
 
+A retire copies the chunk's outputs into host arrays allocated ahead
+(``Drained``), so that the harness's own work between the program's calls
+stays small.  For standard error (``vobench/host.py``) a run also keeps
+the times of the set-up's parts, the time and CPU of each of the window's
+retires, the host time of each chunk's program call, the window's host
+time by part (the program's calls; the result copies with the event and
+the judge's sample; the waits on the card; the drain into host arrays),
+each thread's CPU time in the window, and a fixed piece of Python timed
+just before the window and just after it (counted in neither).
+
 RGB-D runs one stream: ``rgbd_run_raw`` has no stream axis, and a mix
 that asks for more is refused rather than run on stream 0 alone.
 """
@@ -25,6 +35,7 @@ import time
 import numpy as np
 import torch
 
+from vobench import host as hostinfo
 from vobench import program
 from vobench.drivers import Reservoir, Run, Sample, make_inputs, stream_seed
 from vobench.judge import (Readings, control_mono, control_rgbd, frame, judge_mono_frames,
@@ -46,30 +57,73 @@ def _drain_buffers(outputs: dict, pinned: bool) -> dict:
     return {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=pinned) for k, v in outputs.items()}
 
 
+class Drained:
+    """The outputs of every retired chunk on the host, in order: a retire
+    copies the chunk's drain buffers (numpy views shaped as ``like``) into
+    the next slot of blocks allocated ``block`` chunks at a time, so that it
+    allocates nothing else."""
+
+    def __init__(self, like: dict, block: int = 512):
+        self.like = like
+        self.block, self.blocks, self.count = block, [], 0
+
+    def put(self, views: dict) -> None:
+        j = self.count % self.block
+        if j == 0:
+            self.blocks.append({k: np.empty((self.block,) + v.shape, v.dtype)
+                                for k, v in self.like.items()})
+        last = self.blocks[-1]
+        for key, v in views.items():
+            last[key][j] = v
+        self.count += 1
+
+    def arrays(self, batched: bool) -> dict:
+        """{key: the chunks' frames back to back}: (B, frames, ...) for
+        ``batched`` outputs (B, n, ...), else (frames, ...)."""
+        out = {}
+        for key, v in self.like.items():
+            slots = np.concatenate([b[key] for b in self.blocks])[:self.count] if self.blocks \
+                else np.empty((0,) + v.shape, v.dtype)
+            if batched:
+                slots = np.moveaxis(slots, 0, 1)
+                out[key] = slots.reshape(slots.shape[0], -1, *slots.shape[3:])
+            else:
+                out[key] = slots.reshape(-1, *slots.shape[2:])
+        return out
+
+
 def run(config: dict, traffic: dict, seed: int, seconds: float, trace: bool,
         device="cuda", setup_clock=None, shape=None) -> Run:
     """The offline loop (module docstring).  ``setup_clock()`` gives the
     seconds since the process started; ``shape`` is for the CPU tests."""
     _check(config, traffic)
+    parts = []
+    mark = (lambda name: parts.append((name, setup_clock()))) if setup_clock else \
+        (lambda name: None)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     cfg = program.dvo_config(config)
-    inp = make_inputs(config, traffic, seed, dev, cuda, shape)
+    inp = make_inputs(config, traffic, seed, dev, shape)
     B, n, M = traffic["streams"], traffic["chunk"], traffic["period"]
     if M % n:
         raise ValueError(f"period {M} is not a multiple of the chunk {n}")
     chunks = M // n
     mono = config["mode"] == "mono"
     ic = config["input"]
-    # rig frames in chunk order, each chunk one contiguous block to upload
-    bank_g = inp.gray.reshape(B, chunks, n, *inp.gray.shape[2:]).transpose(0, 1).contiguous()
-    bank_c = None if mono else inp.counts.reshape(B, chunks, n, *inp.counts.shape[2:]) \
-        .transpose(0, 1).contiguous()
-    if cuda:
-        bank_g = bank_g.pin_memory()
-        bank_c = None if bank_c is None else bank_c.pin_memory()
+
+    def in_chunks(frames):
+        """(B, M, ...) host frames in chunk order (chunks, B, n, ...), each
+        chunk one contiguous block to upload, copied once into pinned memory
+        on the card."""
+        src = frames.reshape(B, chunks, n, *frames.shape[2:]).transpose(0, 1)
+        return torch.empty(src.shape, dtype=src.dtype, pin_memory=cuda).copy_(src)
+
+    bank_g = in_chunks(inp.gray)
+    bank_c = None if mono else in_chunks(inp.counts)
     resets = None if not mono else inp.resets.reshape(B, chunks, n, *inp.resets.shape[2:]) \
         .transpose(0, 1).contiguous()
+    program.sync(dev)
+    mark("inputs")
 
     # the first frame of each stream is the last of its cycle: the path is closed
     first = inp.gray[:, M - 1].to(dev)
@@ -79,6 +133,8 @@ def run(config: dict, traffic: dict, seed: int, seconds: float, trace: bool,
         state = program.rgbd_init(first[0], inp.mask, inp.counts[0, M - 1].to(dev), inp.K, cfg,
                                   ic["depth_scale"], ic["depth_sigma"])
     start = state
+    program.sync(dev)
+    mark("init")
 
     def call(state, k):
         g = bank_g[k].to(dev, non_blocking=True)
@@ -95,27 +151,41 @@ def run(config: dict, traffic: dict, seed: int, seconds: float, trace: bool,
         state, res = call(state, k)
         program.sync(dev)
         walls.append(time.perf_counter() - t)
+        mark(("capture", "steady")[k])
     sets = [_drain_buffers(program.fields(res), cuda) for _ in range(3)]
+    views = [{k: b.numpy() for k, b in s.items()} for s in sets]
+    drained = Drained(views[0])
     free = collections.deque(range(3))
-    host = collections.defaultdict(list)
     inflight = collections.deque()
     reservoir = Reservoir(traffic["check_chunks"], np.random.default_rng(stream_seed(seed, 1 << 21)))
     count = [2, 0]                     # next chunk, frames on the host
+    cpu_now = hostinfo.cpu_reader()
+    marks, cpus, calls = [], [], []    # each retire's time and CPU, each call's host us
+    spent = dict.fromkeys(("result_copies", "wait", "drain"), 0.0)
+    clock = time.perf_counter
 
     def retire():
         ev, i, frames = inflight.popleft()
+        t = clock()
         if ev is not None:
             ev.synchronize()
-        for key, buf in sets[i].items():
-            host[key].append(buf.numpy().copy())
+        t1 = clock()
+        drained.put(views[i])
         free.append(i)
         count[1] += frames
+        t2 = clock()
+        spent["wait"] += t1 - t
+        spent["drain"] += t2 - t1
+        marks.append(t2)
+        cpus.append(cpu_now())
 
     def enqueue(judged=True):
         nonlocal state
         k = count[0] % chunks
         before = state
+        t0 = clock()
         state, res = call(state, k)
+        t1 = clock()
         out = program.fields(res)
         i = free.popleft()
         for key, t in out.items():
@@ -128,6 +198,8 @@ def run(config: dict, traffic: dict, seed: int, seconds: float, trace: bool,
         if judged:
             reservoir.offer(lambda: Sample(k, before, state, out))
         count[0] += 1
+        calls.append(int(round(1e6 * (t1 - t0))))
+        spent["result_copies"] += clock() - t1
         if len(inflight) >= 2:
             retire()
 
@@ -151,6 +223,10 @@ def run(config: dict, traffic: dict, seed: int, seconds: float, trace: bool,
                 traced.first = first_traced
                 break
     before_window = count[1]
+    probe = hostinfo.cpu_probe()
+    ticks = hostinfo.thread_ticks()
+    del marks[:], cpus[:], calls[:]
+    spent.update(dict.fromkeys(spent, 0.0))
     t0 = time.perf_counter()
     enqueue()
     while time.perf_counter() - t0 < seconds:
@@ -158,12 +234,15 @@ def run(config: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     drain()
     program.sync(dev)
     window = time.perf_counter() - t0
+    readings = {"setup_parts": parts, "chunk_walls": hostinfo.chunk_walls(marks, t0),
+                "chunk_cpus": cpus, "chunk_calls": calls, "chunk_parts": dict(spent),
+                "thread_cpu_s": hostinfo.thread_seconds(ticks, hostinfo.thread_ticks()),
+                "cpu_probe_ns": (probe, hostinfo.cpu_probe())}
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     return Run(frames=count[1] - before_window, window_s=window, setup_s=setup_s,
-               capture_s=walls[0] - walls[1],
-               host={k: np.concatenate(v, axis=1 if B > 1 else 0) for k, v in host.items()},
+               capture_s=walls[0] - walls[1], host=drained.arrays(B > 1),
                samples=reservoir.items, first=start, trace=traced, memory_peak_bytes=peak,
-               inputs=inp)
+               inputs=inp, readings=readings)
 
 
 def _frame_outputs(outputs: dict, b, i) -> dict:

@@ -14,8 +14,9 @@ observations), so every seed gives the same set of frames.  The seed
 draws where on the path the cycle starts and the sensor's noise and holes.
 
 ``render`` returns uint8 gray (and for RGB-D uint16 depth counts with
-sensor noise and holes) on the device; the harness moves them into pinned
-host memory, where a camera or a decoder would hand them over.
+sensor noise and holes) on the device; the harness moves them to host
+memory and lays them out in pinned memory, where a camera or a decoder
+would hand them over.
 """
 
 from __future__ import annotations

@@ -116,7 +116,7 @@ def _mono(device):
     """The ``mono.offline`` cell's first state and a chunk call at its size."""
     _, config, traffic, _, _ = harness.resolve(BENCH, "mono.offline", ROOT)
     cfg = program.dvo_config(config)
-    inp = drivers.make_inputs(config, traffic, SEED, device, True)
+    inp = drivers.make_inputs(config, traffic, SEED, device)
     n = traffic["chunk"]
     grays = inp.gray[:, :n].to(device)
     state = program.mono_init(inp.gray[:, -1].to(device), inp.mask, inp.K, cfg, inp.noise,

@@ -89,6 +89,13 @@ def test_readers_find_nothing_without_a_trace():
         assert harness.reader(name)(ctx) is None
 
 
+
+def test_window_readers_read_the_run_untraced():
+    run = SimpleNamespace(frames=96_000, window_s=20.0, memory_peak_bytes=742_766_080)
+    ctx = SimpleNamespace(run=run, trace=None)
+    assert harness.reader("fleet_window_frames_per_s")(ctx) == 4_800.0
+    assert harness.reader("fleet_device_memory_mib")(ctx) == 708.35693359375
+
 def test_trace_union_and_gaps():
     t = Trace([("a", 0.0, 10.0), ("b", 5.0, 20.0), ("c", 30.0, 40.0)],
               [("host op", 19.0, 35.0), ("outer", 0.0, 100.0)], 50e-6, 1)
