@@ -200,9 +200,10 @@ Phases, one line each (or a few):
                 card's state (``tools/step_gate`` at BA_SOLVE_TOL); every
                 promotion with a full window has a finite ``ba_cost`` >= 0
                 and ``ba_window_xi`` is (4, 6); the launches are exactly the
-                mono path's; one host sync per frame (the decision and the
-                ring's head and count, for BA's window slots); device ops, device-busy
-                and wall ms of one ``bundle_adjust`` with the targets batched
+                mono path's; over six frames that hold a solve, no host sync
+                (BA is an IF node of the captured step), one condition
+                launch and one BA region a frame, a ``ba`` stage marker
+                once a solve; device ops, device-busy and wall ms of one ``bundle_adjust`` with the targets batched
                 and with the literal double loop; the run with and without BA
                 in turns (A, B, B, A).
  11. posegraph — ``optimize_pose_graph_padded`` on a drifting circle with
@@ -3204,6 +3205,7 @@ def ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path, depth
         monocular_run,
         monocular_step,
     )
+    from dvo_tpu_torch.ops.cuda import _build
     from dvo_tpu_torch.tools import step_gate
 
     cfg_ba = dataclasses.replace(cfg, ba=dataclasses.replace(
@@ -3303,10 +3305,11 @@ def ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path, depth
     noisy = cuda_vs_cpu(outs, run(cfg_ba, "cpu", n))
     phase("ba", say("noise-bootstrapped rig (printed)", noisy))
     # ... and the noise-bootstrapped rig's steps that run a bundle_adjust,
-    # each from the card's state before it (the eager loop, which a run with
-    # BA is) against the same step on the CPU, at BA_SOLVE_TOL: poses, the
-    # decision, the window's poses and the cost (BA's depth maps are
-    # printed: its depth solve moves thousands of pixels on float noise).
+    # each from the card's state before it (the eager step, which reads the
+    # decision to the host) against the same step on the CPU, at
+    # BA_SOLVE_TOL: poses, the decision, the window's poses and the cost
+    # (BA's depth maps are printed: its depth solve moves thousands of pixels
+    # on float noise); the eager steps' poses are bitwise the graphed run's.
     cfg_e, K_e, (g_e, m_e) = _cull_chunk(cfg_ba, K, grays[1:1 + n], masks[1:1 + n])
     r_e = resets[:n].to(dev)
     g_ec, m_ec, K_ec = g_e.cpu(), m_e.cpu(), K_e.cpu()
@@ -3319,26 +3322,47 @@ def ba_phase(dev, card_line, grays, masks, K, cfg, noise, resets, by_path, depth
     gates = {k: step_gate.summary(v) for k, v in readings.items()}
     same = bool(torch.equal(torch.stack([r.T_world for r in gate_res]), T[:n]))
     phase("ba", f"noise-bootstrapped rig, each step with BA from the card's state vs the CPU's "
-                f"step: {gates} (tol {BA_SOLVE_TOL}); the eager loop's poses bitwise the run's: "
-                f"{same}")
+                f"step: {gates} (tol {BA_SOLVE_TOL}); the eager steps' poses bitwise the graphed "
+                f"run's: {same}")
     tracked = gates[step_gate.CHECKS[1]]
     if any(g["failed"] for g in gates.values()) or tracked["ba_frames"] != noisy["ba_frames"] \
             or not same:
         raise AssertionError("ba: a step with BA differs between the card and the CPU")
 
-    # Host syncs per frame with BA on, from the state after the first chunk
-    # (ring full), inputs on the card; the frames must hold a promotion.
+    # Host syncs with BA on, from the state after the first chunk (ring
+    # full), inputs on the card; the frames must hold a promotion with BA.
+    # None: the driver replays its captured step, whose BA is an IF node on
+    # the device's decision.  Then the same frames under the profiler: per
+    # frame one launch of the IF node's condition kernel (csrc/graph_if.cu)
+    # and one BA region issued (LAUNCHES["ba"]), and on the card the ``ba``
+    # stage's marker once a solve, on the frames that solve and no other.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     nxt = 1 + CHUNK
-    d_resets = resets[CHUNK:CHUNK + BA_SYNC_FRAMES].to(dev)
+    window_in = (grays[nxt:nxt + BA_SYNC_FRAMES], masks[nxt:nxt + BA_SYNC_FRAMES], K, cfg_ba,
+                 resets[CHUNK:CHUNK + BA_SYNC_FRAMES].to(dev))
     sync_out = []
-    syncs = count_syncs(lambda: sync_out.append(monocular_run(
-        mids[0], grays[nxt:nxt + BA_SYNC_FRAMES], masks[nxt:nxt + BA_SYNC_FRAMES], K, cfg_ba,
-        d_resets)[1]))
+    syncs = count_syncs(lambda: sync_out.append(monocular_run(mids[0], *window_in)[1]))
     ba_in_window = int((sync_out[0].ba_cost >= 0).sum())
-    phase("ba", f"host syncs over {BA_SYNC_FRAMES} frames with {ba_in_window} BA promotions: "
-                f"{syncs} ({syncs / BA_SYNC_FRAMES:g} per frame)")
-    if syncs != BA_SYNC_FRAMES or ba_in_window == 0:
-        raise AssertionError("ba: expected one host sync per frame, BA promotions included")
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = monocular_run(mids[0], *window_in)[1]
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    conditions = sum("set_condition" in name for name in kernels)
+    marks = sum(name == "dvo_stage_ba" for name in kernels)
+    regions = _build.LAUNCHES["ba"]
+    phase("ba", f"over {BA_SYNC_FRAMES} frames with {ba_in_window} BA promotions: host syncs "
+                f"{syncs}; on the card {conditions} condition launches, {regions} BA regions "
+                f"issued, {marks} ba stage markers; the profiled replay's costs equal: "
+                f"{bool(torch.equal(again.ba_cost, sync_out[0].ba_cost))}")
+    if syncs != 0 or ba_in_window == 0:
+        raise AssertionError("ba: expected no host sync, BA promotions included")
+    if (conditions, regions, marks) != (BA_SYNC_FRAMES, BA_SYNC_FRAMES, ba_in_window) \
+            or not torch.equal(again.ba_cost, sync_out[0].ba_cost):
+        raise AssertionError("ba: expected one IF node and one BA region a frame, and a ba "
+                             "stage on each frame that solves")
 
     # One bundle_adjust on the full ring's newest window: device ops, device
     # busy and wall, targets batched and as the literal double loop, in turns.
@@ -3501,6 +3525,19 @@ def posegraph_phase(dev, card_line, grays, K, cfg, by_path):
     return summary
 
 
+def _eager_run(state, n: int, step):
+    """The eager step loop, the yardstick of the graphed drivers: ``n``
+    calls of ``step(state, i)`` -> (state', result); returns (state',
+    results with a leading N axis)."""
+    from dvo_tpu_torch.models.odometry import stack_states
+
+    results = []
+    for i in range(n):
+        state, res = step(state, i)
+        results.append(res)
+    return state, stack_states(results)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -3508,7 +3545,6 @@ def main() -> None:
     from dvo_tpu_torch.config import DVOConfig
     from dvo_tpu_torch.models.odometry import (
         _cull_chunk,
-        _eager_run,
         monocular_init,
         monocular_init_with_depth,
         monocular_run,
@@ -3934,8 +3970,8 @@ def main() -> None:
     syncs_rgbd = count_syncs(lambda: chunk_r(mid[0], slice(n, 2 * n)))
     captures = dict(rgbd=_build.CAPTURES)
     # The 48-frame mono run (17 promotions) in two chunks: the keyframe
-    # decision stays on the device.  With BA, one per frame: the ba phase
-    # counts those.
+    # decision stays on the device.  With BA too (an IF node of the graph):
+    # the ba phase counts those.
     _build.reset_launches()
     d_grays_m, d_masks_m = grays[1:1 + N_FRAMES], masks[1:1 + N_FRAMES]
     d_resets = resets[:N_FRAMES].to(dev)

@@ -204,6 +204,15 @@ class DVOConfig:
         )
 
     @staticmethod
+    def monocular_ba() -> "DVOConfig":
+        """``monocular()`` with windowed photometric BA on every promotion
+        whose window is full (``BAConfig`` defaults: 7 keyframes, 5
+        iterations), the back end of Direct Sparse Odometry's windowed
+        optimisation (Engel, Koltun, Cremers, TPAMI 2018, section 3) on this
+        front end."""
+        return dataclasses.replace(DVOConfig.monocular(), ba=BAConfig(enabled=True))
+
+    @staticmethod
     def rgbd() -> "DVOConfig":
         """RGB-D tracking mode: 4 levels, 2x decimation (system.hpp:30,82).
 

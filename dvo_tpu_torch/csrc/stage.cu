@@ -18,13 +18,15 @@ extern "C" __global__ void dvo_stage_track() {}
 extern "C" __global__ void dvo_stage_pose() {}
 extern "C" __global__ void dvo_stage_map() {}
 extern "C" __global__ void dvo_stage_copy() {}
+extern "C" __global__ void dvo_stage_ba() {}
 extern "C" __global__ void dvo_stage_end() {}
 
 namespace {
 
 using Marker = void (*)();
 constexpr Marker kMarkers[] = {dvo_stage_frame_build, dvo_stage_track, dvo_stage_pose,
-                               dvo_stage_map,         dvo_stage_copy,  dvo_stage_end};
+                               dvo_stage_map,         dvo_stage_copy,  dvo_stage_ba,
+                               dvo_stage_end};
 constexpr int kCount = sizeof(kMarkers) / sizeof(kMarkers[0]);
 
 }  // namespace

@@ -46,7 +46,6 @@ import torch
 
 from dvo_tpu_torch import lie
 from dvo_tpu_torch.config import BAConfig
-from dvo_tpu_torch.models.history import host_ints
 from dvo_tpu_torch.ops.sampling import bilinear_dense, bilinear_masked
 from dvo_tpu_torch.ops.warp import pixel_grid
 
@@ -79,24 +78,23 @@ def window_from_reference(obj, device) -> BAWindow:
                        for f in dataclasses.fields(BAWindow)})
 
 
-def window_slots(history, m: int, ring=None) -> list:
-    """Ring slots of the newest ``m`` keyframes, oldest first, as Python
-    ints: the index map shared by ``window_from_history`` and the
-    write-back.  ``ring``: the ring's (head, count) as host ints when the
-    caller has them, else they are read in one copy (``host_ints``).  Ages
-    beyond the live window clamp to the oldest retained keyframe, as
-    ``born_slot``."""
-    head, count = host_ints(history) if ring is None else ring
-    oldest = max(count - 1, 0)
-    return [(head - min(age, oldest)) % history.capacity for age in range(m - 1, -1, -1)]
+def window_slots(history, m: int) -> torch.Tensor:
+    """Ring slots of the newest ``m`` keyframes, oldest first: an (m,) int64
+    tensor on the ring's device, computed there from its ``head`` and
+    ``count`` (no host read).  The index map shared by
+    ``window_from_history`` and the write-back.  Ages beyond the live window
+    clamp to the oldest retained keyframe, as ``born_slot``."""
+    ages = torch.arange(m - 1, -1, -1, device=history.head.device)
+    oldest = torch.clamp(history.count - 1, min=0)
+    return torch.remainder(history.head - torch.minimum(ages, oldest), history.capacity)
 
 
-def window_from_history(history, K, m: int, ring=None) -> BAWindow:
+def window_from_history(history, K, m: int, slots=None) -> BAWindow:
     """The newest ``m`` keyframes of the ring (oldest first) as a dense
-    window: one stack per plane kind; no host read when ``ring`` = (head,
-    count) is given (``window_slots``)."""
-    slots = window_slots(history, m, ring)
-    take = lambda arr: torch.stack([arr[s] for s in slots])
+    window, gathered on the device: one ``index_select`` per plane kind at
+    ``slots`` (default: ``window_slots(history, m)``)."""
+    slots = window_slots(history, m) if slots is None else slots
+    take = lambda arr: torch.index_select(arr, 0, slots)
     return BAWindow(
         gray=take(history.gray), mask=take(history.mask),
         gx=take(history.gx), gy=take(history.gy), gmask=take(history.gmask),
@@ -344,10 +342,13 @@ def ba_step(window: BAWindow, deltas, drho, cfg: BAConfig, batch_targets: bool =
     S = S + cfg.damping * torch.eye(n, dtype=S.dtype, device=S.device)
     # Gauge block: keyframe 0 stays pinned through identity rows.
     S[:6, :6] += torch.eye(6, dtype=S.dtype, device=S.device)
-    # With dr/ddelta = J the GN step is delta = -S^-1 g.
+    # With dr/ddelta = J the GN step is delta = -S^-1 g: L L^T dc = -g by
+    # two triangular solves (cuSOLVER's potrs cannot be captured into a
+    # CUDA graph's conditional body; a triangular solve can).
     L, info = torch.linalg.cholesky_ex(S, check_errors=False)
     L = torch.where(info == 0, L, torch.nan)
-    dc = -torch.cholesky_solve(g_red[:, None], L)[:, 0]
+    y = torch.linalg.solve_triangular(L, g_red[:, None], upper=False)
+    dc = -torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
     # Back-substitute the inverse-depth increments; the coupling dot is
     # recomputed per host instead of kept.
     hdd_inv = 1.0 / (hdd + cfg.depth_damping)

@@ -37,7 +37,11 @@ Tracing (``utils/trace``): ``run`` opens the spans ``dvo.load``,
 the copies are the ``copy`` stage.  The graph captured at set-up holds no
 marker.  While markers are on (tracing, one stream), a driver captures a
 second, traced copy of its step once, with the stage markers in it, and
-replays that copy for as long as tracing stays on.
+replays that copy for as long as tracing stays on.  A driver made with
+``marked`` (a step with a conditional region, ``_build.when``: BA) instead
+captures one graph at set-up, with the markers in it, and replays it traced
+or not: a graph with a conditional node must not be captured while a
+profiler records.
 """
 
 from __future__ import annotations
@@ -204,7 +208,7 @@ class StepDriver:
     frame's input tensors (the static inputs start as copies of them);
     ``generator`` is the generator the step draws from, when it draws."""
 
-    def __init__(self, step, state, inputs, K, key, generator=None):
+    def __init__(self, step, state, inputs, K, key, generator=None, marked=False):
         self.key, self.generator = key, generator
         self.cuda = K.device.type == "cuda"
         self.state = clone_state(state)
@@ -214,8 +218,10 @@ class StepDriver:
         self.stream = self.out = self._traced = None
         if self.cuda:
             self.stream = torch.cuda.Stream(K.device)
-            with trace.span("capture"), trace.unmarked():
+            with trace.span("capture"), trace.marked() if marked else trace.unmarked():
                 self.out, self._replay = self._capture(warmup=2)
+            if marked:
+                self._traced = self.out, self._replay
 
     def _capture(self, warmup: int):
         from dvo_tpu_torch.ops.cuda import _build
@@ -227,7 +233,8 @@ class StepDriver:
 
     def traced(self):
         """(outputs, replay) of the traced copy of the step: captured at
-        the first call, with no warm-up, while markers are on."""
+        the first call, with no warm-up, while markers are on (a ``marked``
+        driver's one graph)."""
         if self._traced is None:
             with trace.span("capture"):
                 self._traced = self._capture(warmup=0)
@@ -299,7 +306,7 @@ def carry(new, old) -> None:
         register(new, drivers)
 
 
-def run(owner, states, step, key, Ks, sources, n: int, generators=None):
+def run(owner, states, step, key, Ks, sources, n: int, generators=None, marked=False):
     """``n`` frames of B streams.  ``owner``: the state object the caller
     passed (a single state, or a stack of B), with which the drivers are
     cached; ``states``: the B per-stream states; ``step``: as
@@ -308,9 +315,10 @@ def run(owner, states, step, key, Ks, sources, n: int, generators=None):
     matches); ``Ks``: B (3, 3) intrinsics; ``sources``: per stream, the
     step's inputs as (tensor, per_frame), an (n, ...) stack where per_frame
     holds, else one tensor for the chunk; ``generators``: per stream, the
-    generator the step draws from (None: it draws nothing).  Returns (the
-    B states', the results with a leading (B, n) axis, the drivers, which
-    the caller ``register``s with the state it returns)."""
+    generator the step draws from (None: it draws nothing); ``marked``: new
+    drivers capture one graph with the stage markers in it (``StepDriver``).
+    Returns (the B states', the results with a leading (B, n) axis, the
+    drivers, which the caller ``register``s with the state it returns)."""
     b_count = len(states)
     gens = [None] * b_count if generators is None else list(generators)
     cached = drivers_of(owner)
@@ -319,7 +327,7 @@ def run(owner, states, step, key, Ks, sources, n: int, generators=None):
         d = cached[b] if cached is not None and len(cached) == b_count else None
         if d is None or d.key != key or d.generator is not gens[b]:
             first = [t[0] if per_frame else t for t, per_frame in sources[b]]
-            d = StepDriver(step, states[b], first, Ks[b], key, gens[b])
+            d = StepDriver(step, states[b], first, Ks[b], key, gens[b], marked)
         drivers.append(d)
     drivers = tuple(drivers)
     register(owner, drivers)

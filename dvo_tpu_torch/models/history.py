@@ -7,8 +7,7 @@ was born in is ``slot = (head - age) mod C`` (reference frame.hpp:176).
 takes a device flag and writes its slot with ``torch.where`` — no host
 read.  Updates copy the stacks (a few MB per step) so that an older state
 stays valid.  ``host_ints`` reads ``head`` and ``count`` to the host in one
-copy, for the host-side consumers (BA's window slots, the pose graph, the
-gallery).
+copy, for the host-side consumers (the pose graph, the gallery).
 """
 
 from __future__ import annotations
@@ -122,18 +121,6 @@ def refresh_head(history: KeyframeHistory, frame: Frame,
         sigma=_set(history.sigma, sel, s.sigma),
         xi=_set(history.xi, sel, frame.xi),
     )
-
-
-def write_back(history: KeyframeHistory, slots, xi, depth) -> KeyframeHistory:
-    """Write bundle-adjusted world poses and depth maps into ring slots:
-    ``slots`` a list of M ints (``ba.window_slots``), ``xi`` (M, 6),
-    ``depth`` (M, H, W).  The writes go into copies of the stacks, one
-    indexed copy per slot, and read nothing back to the host."""
-    new_xi, new_depth = history.xi.clone(), history.depth.clone()
-    for a, slot in enumerate(slots):
-        new_xi[slot] = xi[a]
-        new_depth[slot] = depth[a]
-    return dataclasses.replace(history, xi=new_xi, depth=new_depth)
 
 
 def born_slot(history: KeyframeHistory, age: torch.Tensor) -> torch.Tensor:

@@ -8,16 +8,18 @@
   becomes the next reference and there is no mapper (odometrizeUsingDepth,
   system.hpp:77-93).
 
-Host syncs: none per frame on either path without BA.  The monocular step
-decides promotion on the device, as ``dvo_tpu``'s ``lax.cond`` does: it
-enqueues both branches (promote: propagate, the new reference, the ring
-push; update: the epipolar depth update) and selects their results with
+Host syncs: none per frame on either path.  The monocular step decides
+promotion on the device, as ``dvo_tpu``'s ``lax.cond`` does: it enqueues
+both branches (promote: propagate, the new reference, the ring push;
+update: the epipolar depth update) and selects their results with
 ``torch.where`` on the device bool ``need_kf``; the ring's ``head`` and
 ``count`` and the frame ids are device int32 scalars.  So a step reads
 nothing back and can be captured in a CUDA graph.  With ``cfg.ba.enabled``
-the step reads the decision and the ring's ``head`` and ``count`` to the
-host in one copy and runs BA on a promotion whose window is full (one sync
-per frame): BA's window slots are host ints.
+the step's windowed BA (on a promotion whose window is full) is a
+conditional region (``_build.when``): in the captured step a CUDA graph IF
+node on the device bool, its window slots gathered on the device from the
+ring's ``head``; only an eager step on the card outside a capture reads
+that bool back.
 
 A chunk (``monocular_run``, ``rgbd_run``, the batched entry points) runs
 through the graphed step driver (``models/graphed``): on the card one CUDA
@@ -60,7 +62,6 @@ from dvo_tpu_torch.models.history import (
     KeyframeHistory,
     push,
     refresh_head,
-    write_back,
 )
 from dvo_tpu_torch.models.mapper import (
     DepthUpdateStats,
@@ -69,7 +70,7 @@ from dvo_tpu_torch.models.mapper import (
     propagate,
 )
 from dvo_tpu_torch.models.tracker import TrackResult, track
-from dvo_tpu_torch.ops.cuda import pose
+from dvo_tpu_torch.ops.cuda import _build, pose
 from dvo_tpu_torch.ops.depth_filter import draw_reset_depth
 from dvo_tpu_torch.ops.image import cull_image, cull_intrinsic
 from dvo_tpu_torch.utils import trace
@@ -172,7 +173,7 @@ def monocular_step(state: VOState, gray, mask, K, cfg: DVOConfig = DVOConfig.mon
     state's generator when absent.  Returns (state', StepResult).  Traced
     (``utils/trace``), its stages are ``frame_build``, ``pose`` (the warm
     start), ``track``, ``pose``, ``map`` (with the pose table's ``pose``
-    inside) and ``pose``."""
+    inside, and ``ba`` where BA runs) and ``pose``."""
     device = state.ref.xi.device
     gray, mask, K = (torch.as_tensor(x, device=device) for x in (gray, mask, K))
     with trace.stage("frame_build"):
@@ -243,27 +244,41 @@ def _map(state: VOState, frame: Frame, tr: TrackResult, cfg: DVOConfig, reset_de
 
     ba = _no_ba(device, cfg.ba.window if cfg.ba.enabled else 0)
     if cfg.ba.enabled:
-        # Windowed BA on a promotion whose window is full: refine the newest
-        # ``window`` keyframe poses and depth maps, write them back into the
-        # ring, and carry the newest entry (this frame) into the new
-        # reference: its depth goes on to the regulariser, sigma and age
-        # unchanged.  BA's slots are host ints: the decision and the ring's
-        # head and count come back in one copy.
-        kf, head, count = torch.stack([need_kf.to(torch.int32), history.head,
-                                       history.count]).tolist()
-        if kf and count >= cfg.ba.window:
-            res = bundle_adjust(window_from_history(history, ref.base.K, cfg.ba.window,
-                                                    (head, count)), cfg.ba)
-            history = write_back(history, window_slots(history, cfg.ba.window, (head, count)),
-                                 res.xi, res.depth)
-            d = res.depth[-1]
-            ref = dataclasses.replace(ref, xi=res.xi[-1])
-            ba = dict(ba_cost=res.costs[-1], ba_window_xi=res.xi)
+        _windowed_ba(history, ref, d, need_kf, ba, cfg)
 
     # --- the new maps on every level, the base depth regularised
     # (frame.cpp:39-61, mapper.cpp:30,139-144): one launch on CUDA ---
     ref = with_regularized_depth(ref, d, s, age, cfg.mapper)
     return ref, history, need_kf, stats, ba
+
+
+def _windowed_ba(history: KeyframeHistory, ref: Frame, d, need_kf, ba: dict, cfg: DVOConfig):
+    """Windowed BA on a promotion whose window is full: refine the newest
+    ``cfg.ba.window`` keyframe poses and depth maps, write them back into
+    the ring's slots, and carry the newest entry (this frame) into the new
+    reference: its pose, and its depth ``d``, which goes on to the
+    regulariser, sigma and age unchanged; ``ba`` gets the final cost and
+    the window's poses.  Every output is written in place, into tensors
+    this step made (the window's rows of the ring's pose and depth stacks
+    after the push, the reference's pose, ``d``, ``ba``'s): a conditional
+    region (``_build.when``), which a captured step skips whole where BA is
+    not due.  The window's slots are gathered on the device from the ring's
+    ``head``; traced, the region is the ``ba`` stage."""
+    m = cfg.ba.window
+    due = need_kf & (history.count >= m)
+    slots = window_slots(history, m)
+
+    def solve(put):
+        with trace.stage("ba"):
+            res = bundle_adjust(window_from_history(history, ref.base.K, m, slots), cfg.ba)
+            put(history.xi, res.xi, slots)
+            put(history.depth, res.depth, slots)
+            put(d, res.depth[-1])
+            put(ref.xi, res.xi[-1])
+            put(ba["ba_cost"], res.costs[-1])
+            put(ba["ba_window_xi"], res.xi)
+
+    _build.when(due, solve, "ba")
 
 
 def _cull_chunk(cfg: DVOConfig, K, *stacks):
@@ -332,18 +347,6 @@ def stream_generators(device, streams: int, seed: int = 0) -> list:
             for b in range(streams)]
 
 
-def _eager_run(state, n: int, step):
-    """The eager step loop (``step(state, i)`` -> (state', result)): the
-    monocular chunk with ``cfg.ba.enabled``, whose step reads one host copy
-    per frame and cannot be captured.  Returns (state', results with a
-    leading N axis)."""
-    results = []
-    for i in range(n):
-        state, res = step(state, i)
-        results.append(res)
-    return state, _stack(results)
-
-
 def _spec(sources) -> tuple:
     """What a captured step depends on in its inputs: each input's shape,
     dtype and whether it changes per frame."""
@@ -371,7 +374,8 @@ def _mono_chunk(owner, states, grays, masks, Ks, cfg: DVOConfig, reset_depths):
 
     key = ("mono", cfg, _spec(sources[0]), str(Ks[0].device))
     generators = None if reset_depths is not None else [s.generator for s in states]
-    return graphed.run(owner, states, step, key, Ks, sources, n, generators)
+    return graphed.run(owner, states, step, key, Ks, sources, n, generators,
+                       marked=cfg.ba.enabled and b_count == 1)
 
 
 def monocular_run(state: VOState, grays, masks, K, cfg: DVOConfig = DVOConfig.monocular(),
@@ -384,10 +388,8 @@ def monocular_run(state: VOState, grays, masks, K, cfg: DVOConfig = DVOConfig.mo
 
     The chunk runs through the graphed step driver (``models/graphed``): on
     the card one CUDA graph per run, replayed once per frame, with nothing
-    read back to the host; on the CPU the same protocol without capture.
-    With ``cfg.ba.enabled`` the step reads one host copy per frame (BA's
-    window slots) and cannot be captured: that chunk runs the eager step
-    loop (``_eager_run``), the only eager case on the card."""
+    read back to the host (with ``cfg.ba.enabled`` too: BA is an IF node of
+    the graph); on the CPU the same protocol without capture."""
     device = state.ref.xi.device
     with trace.chunk(1, device):
         return _monocular_run(state, grays, masks, K, cfg, reset_depths)
@@ -401,10 +403,6 @@ def _monocular_run(state: VOState, grays, masks, K, cfg: DVOConfig, reset_depths
         reset_depths = torch.as_tensor(reset_depths, device=device)
     with trace.span("cull"), trace.stage("frame_build", end=True):
         cfg, K, (grays, masks) = _cull_chunk(cfg, K, grays, masks)
-    if cfg.ba.enabled:
-        return _eager_run(state, grays.shape[0], lambda st, i: monocular_step(
-            st, grays[i], masks if masks.dim() == 2 else masks[i], K, cfg,
-            None if reset_depths is None else reset_depths[i]))
     states, res, drivers = _mono_chunk(state, [state], grays[None], masks[None], [K], cfg,
                                        None if reset_depths is None else reset_depths[None])
     graphed.register(states[0], drivers)
@@ -578,20 +576,14 @@ def monocular_run_batched(states: VOState, grays, masks, K,
     K (3, 3) or (B, 3, 3); ``reset_depths`` (B, N, h, w) or None (each
     stream draws from its own generator).  On the card one graphed driver
     per stream, each replayed on its own CUDA stream; on the CPU the
-    streams in turn; with ``cfg.ba.enabled`` each stream's eager loop in
-    turn.  Returns (the stack of states', StepResult with leading (B, N)
-    axes)."""
+    streams in turn.  Returns (the stack of states', StepResult with
+    leading (B, N) axes)."""
     device = states.ref.xi.device
     with trace.chunk(states.frame_count.shape[0], device):
         grays, masks, K = (torch.as_tensor(x, device=device) for x in (grays, masks, K))
         if reset_depths is not None:
             reset_depths = torch.as_tensor(reset_depths, device=device)
         streams = unstack_states(states)
-        if cfg.ba.enabled:
-            runs = [_monocular_run(st, grays[b], masks[b], k, cfg,
-                                   None if reset_depths is None else reset_depths[b])
-                    for b, (st, k) in enumerate(zip(streams, _per_stream_K(K, len(streams))))]
-            return stack_states([r[0] for r in runs]), _stack([r[1] for r in runs])
         with trace.span("cull"), trace.stage("frame_build", end=True):
             cfg, K, (grays, masks) = _cull_chunk(cfg, K, grays, masks)
         new, res, drivers = _mono_chunk(states, streams, grays, masks,

@@ -21,11 +21,13 @@ the tolerances in ``chip_smoke.py`` are set for that.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
 import threading
+import weakref
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -37,7 +39,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=fa
 # Kernel launches since the last ``reset_launches``: each wrapper adds one
 # where it launches its kernel, and nowhere else.
 LAUNCHES = {"gn": 0, "gn_step": 0, "gn_level": 0, "epipolar": 0, "regularize": 0,
-            "framebuild": 0, "regularize_cull": 0, "pose": 0}
+            "framebuild": 0, "regularize_cull": 0, "pose": 0, "ba": 0}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
 # float32 outside the tensor cores.  A kernel's bound is taken against them.
@@ -77,6 +79,9 @@ _SIGNATURES = {
     "dvo_pose_track": ([_P] * 6 + [_P], _I),
     "dvo_pose_table": ([_P] * 5 + [_I, _P], _I),
     "dvo_pose_emit": ([_P] * 6 + [_P], _I),
+    "dvo_graph_if_load": ([], _I),
+    "dvo_graph_if_begin": ([_P] * 2 + [_P], _I),
+    "dvo_graph_if_end": ([_P], _I),
 }
 
 
@@ -89,6 +94,36 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     CAPTURES = 0
+
+
+class _Capture(threading.local):
+    def __init__(self):
+        self.record = None        # the capture under way in this thread (_Record)
+        self.warming = False      # inside capture_graph's warm-up calls
+
+
+_capture = _Capture()
+
+
+class _Record:
+    """What a capture's conditional regions (``when``) hold for as long as
+    the graph lives: the stream their bodies are captured on and the memory
+    pools of their allocations (released with the graph)."""
+
+    def __init__(self, device):
+        self.device, self.stream, self.pools = device, None, []
+
+    def next_pool(self):
+        import torch
+
+        self.pools.append(torch.cuda.graph_pool_handle())
+        return self.pools[-1]
+
+    def release(self):
+        import torch
+
+        for pool in self.pools:
+            torch._C._cuda_releasePool(self.device.index, pool)
 
 
 def capture_graph(fn, warmup: int = 2, stream=None, keep=(), generators=()):
@@ -106,7 +141,8 @@ def capture_graph(fn, warmup: int = 2, stream=None, keep=(), generators=()):
     launches are set-up and are taken back out of LAUNCHES, and so are the
     capture's, which records kernels without running them; every replay
     adds the captured launches.  ``fn`` must read nothing back to the host:
-    capture raises on a sync."""
+    capture raises on a sync.  A region of ``fn`` that runs only where a
+    device bool holds is a ``when``: an IF node of the graph."""
     import torch
 
     global CAPTURES
@@ -117,8 +153,12 @@ def capture_graph(fn, warmup: int = 2, stream=None, keep=(), generators=()):
     before = dict(LAUNCHES)
     side.wait_stream(current)
     with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
+        _capture.warming = True
+        try:
+            for _ in range(warmup):
+                fn()
+        finally:
+            _capture.warming = False
         if saved:
             torch._foreach_copy_(list(keep), saved)
     current.wait_stream(side)
@@ -128,9 +168,15 @@ def capture_graph(fn, warmup: int = 2, stream=None, keep=(), generators=()):
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
-    # thread_local: the runners' decode threads may touch CUDA meanwhile.
-    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-        out = fn()
+    record = _capture.record = _Record(side.device)
+    try:
+        # thread_local: the runners' decode threads may touch CUDA meanwhile.
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            out = fn()
+    finally:
+        _capture.record = None
+    if record.pools:
+        weakref.finalize(graph, record.release).atexit = False
     captured = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
     LAUNCHES.update(before)
     CAPTURES += 1
@@ -141,6 +187,84 @@ def capture_graph(fn, warmup: int = 2, stream=None, keep=(), generators=()):
             LAUNCHES[k] += n
 
     return out, replay, captured
+
+
+def when(pred, body, counter: str) -> None:
+    """``body(put)`` where the device bool ``pred`` holds, and nothing where
+    it does not, with no host read on the card.  The body writes what it
+    computes with ``put(destination, value, index=None)`` into tensors made
+    before the call (a copy; with ``index``, a 1-D int64 tensor of distinct
+    rows, an ``index_copy_`` into those rows of ``destination``) and changes
+    nothing else.
+
+    - Inside a ``capture_graph`` capture: the body is captured into the body
+      of a CUDA graph IF node (``csrc/graph_if.cu``), which a replay runs
+      only where ``pred`` holds.  It is captured on a stream of the
+      capture's own, its allocations into a memory pool that lives as long
+      as the graph.
+    - In ``capture_graph``'s warm-up calls: the body runs whatever ``pred``
+      reads (so that its kernels, handles and workspaces exist before the
+      capture), and each ``put`` writes a ``torch.where`` on ``pred``.
+    - Anywhere else: ``pred`` is read to the host (one sync on the card)
+      and the body runs where it holds.
+
+    On the card ``LAUNCHES[counter]`` counts the regions issued, one a
+    call, whether the device then runs the body or skips it."""
+    import torch
+
+    def put(dst, value, index=None):
+        if index is None:
+            dst.copy_(value)
+        else:
+            dst.index_copy_(0, index, value)
+
+    def put_where(dst, value, index=None):
+        put(dst, torch.where(pred, value, dst if index is None else dst.index_select(0, index)),
+            index)
+
+    cuda = pred.device.type == "cuda"
+    if cuda:
+        LAUNCHES[counter] += 1
+    if cuda and torch.cuda.is_current_stream_capturing():
+        with _branch(pred):
+            body(put)
+    elif cuda and _capture.warming:
+        check(library().dvo_graph_if_load(), "dvo_graph_if_load")
+        body(put_where)
+    elif bool(pred):
+        body(put)
+
+
+@contextlib.contextmanager
+def _branch(pred):
+    """The block captured into an IF node on ``pred`` (``when``)."""
+    import torch
+
+    record = _capture.record
+    if record is None:
+        raise RuntimeError("a conditional region needs a capture_graph capture")
+    if torch._C._autograd._profiler_enabled():
+        # torch 2.11 / CUDA 12.8: a graph whose conditional node was captured
+        # while a profiler recorded faults (an illegal address) in later
+        # replays under a profiler.
+        raise RuntimeError("a conditional region cannot be captured while a profiler records: "
+                           "start the profiler after the step's first chunk")
+    if record.stream is None:
+        record.stream = torch.cuda.Stream(record.device)
+    pool = record.next_pool()
+    lib = library()
+    caller = torch.cuda.current_stream(record.device)
+    check(lib.dvo_graph_if_begin(pred.data_ptr(), record.stream.cuda_stream, caller.cuda_stream),
+          "dvo_graph_if_begin")
+    try:
+        with torch.cuda.stream(record.stream):
+            torch._C._cuda_beginAllocateCurrentStreamToPool(record.device.index, pool)
+            try:
+                yield
+            finally:
+                torch._C._cuda_endAllocateToPool(record.device.index, pool)
+    finally:
+        check(lib.dvo_graph_if_end(record.stream.cuda_stream), "dvo_graph_if_end")
 
 
 def bound_us(nbytes: int, flops: int):

@@ -95,19 +95,36 @@ def _parser() -> argparse.ArgumentParser:
 
 
 @contextlib.contextmanager
-def _trace(directory: str, cuda: bool):
-    """A ``torch.profiler`` capture of the block, written to
-    ``directory/trace.json``."""
+def _trace(directory: str, cuda: bool, deferred: bool = False):
+    """A ``torch.profiler`` capture written to ``directory/trace.json``:
+    from the start of the block, or, ``deferred``, from the first call of
+    the function the block is given (a runner's ``trace_begin``: a step
+    with BA must not be captured while a profiler records, so such a run is
+    traced from its first chunk's end) to the end of the block."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(directory, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-        if cuda:
+    prof = profile(activities=activities)
+    started = []
+
+    def begin():
+        if not started:
+            prof.start()
+            started.append(True)
+
+    if not deferred:
+        begin()
+    try:
+        yield begin
+        if cuda and started:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(directory, "trace.json"))
+    finally:
+        if started:
+            prof.stop()
+    if started:
+        prof.export_chrome_trace(os.path.join(directory, "trace.json"))
 
 
 def main(argv=None):
@@ -145,8 +162,9 @@ def main(argv=None):
         cfg_mono = dataclasses.replace(
             cfg_mono, ba=dataclasses.replace(cfg_mono.ba, enabled=True, window=args.ba_window,
                                              iterations=args.ba_iters))
-    trace_ctx = (_trace(args.trace, args.device == "cuda") if args.trace
-                 else contextlib.nullcontext())
+    trace_ctx = (_trace(args.trace, args.device == "cuda",
+                        deferred=args.ba and args.device == "cuda" and not args.stream)
+                 if args.trace else contextlib.nullcontext())
 
     if args.stream:
         if args.mode != "mono" or args.format != "info":
@@ -173,12 +191,12 @@ def main(argv=None):
         seq = InfoSequence(os.path.join(args.data, "info.txt"))
         kcal = (KinectCalibration.from_yaml(args.calib) if args.calib
                 else KinectCalibration.kinect_v2())
-        with trace_ctx:
+        with trace_ctx as trace_begin:
             ts, poses, secs = run_kinect(
                 seq, kcal, cfg=cfg_mono if args.mode == "mono" else None, mode=args.mode,
                 max_frames=args.max_frames, undistort=not args.no_undistort,
                 verbose=args.verbose, metrics=metrics, chunk=args.chunk,
-                gray_cull=args.kinect_gray_cull, device=device,
+                gray_cull=args.kinect_gray_cull, device=device, trace_begin=trace_begin,
             )
     else:
         if args.format == "euroc":
@@ -193,14 +211,14 @@ def main(argv=None):
         else:
             seq = InfoSequence(os.path.join(args.data, "info.txt"))
             calib = Calibration.from_yaml(args.calib) if args.calib else Calibration.logicool()
-        with trace_ctx:
+        with trace_ctx as trace_begin:
             if args.mode == "mono":
                 ts, poses, secs = run_monocular(
                     seq, calib, cfg_mono, seed=args.seed, max_frames=args.max_frames,
                     undistort=not args.no_undistort, verbose=args.verbose, metrics=metrics,
                     checkpoint_out=args.checkpoint, gallery_out=args.gallery,
                     pose_graph=args.pose_graph, pose_graph_every=args.pose_graph_every,
-                    chunk=args.chunk, device=device,
+                    chunk=args.chunk, device=device, trace_begin=trace_begin,
                 )
             else:
                 ts, poses, secs = run_rgbd(

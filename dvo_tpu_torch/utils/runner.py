@@ -384,13 +384,22 @@ class _Trajectory:
     metrics record and the verbose line.  ``chunked`` runs the chunked
     path's full chunks, ``step`` one frame of the per-frame path (or the
     tail); ``mono`` adds the keyframe and mapper fields to the verbose
-    line."""
+    line.  ``trace_begin`` is called once, where a trace of the run may
+    begin: after the first chunk's dispatch (which captured its step: a
+    step with BA must not be captured while a profiler records), or before
+    the first per-frame step."""
 
-    def __init__(self, items, metrics, verbose: bool, mono: bool = False):
+    def __init__(self, items, metrics, verbose: bool, mono: bool = False, trace_begin=None):
         self._items, self._metrics, self._verbose, self._mono = items, metrics, verbose, mono
+        self._trace_begin = trace_begin
         self.poses = [np.eye(4, dtype=np.float32)]
         self.times = [items[0].timestamp]
         self.secs = []
+
+    def _begin(self) -> None:
+        if self._trace_begin is not None:
+            self._trace_begin()
+            self._trace_begin = None
 
     def _record(self, fi, row, sec, suffix, pose=None) -> None:
         self.poses.append(to_numpy(row.T_world) if pose is None else pose)
@@ -414,8 +423,13 @@ class _Trajectory:
             self._record(1 + step_idx, row, (time.perf_counter() - t_sec) / (step_idx + 1),
                          "(chunked)", None if pose_of is None else pose_of(step_idx, row))
 
+        def dispatch_then_begin(bufs):
+            res = dispatch(bufs)
+            self._begin()
+            return res
+
         done, chunk_walls = _run_chunks(len(self._items) - 1, chunk, staging, fill_row,
-                                        dispatch, on_frame, **hooks)
+                                        dispatch_then_begin, on_frame, **hooks)
         self.secs.extend(cw / chunk for cw in chunk_walls for _ in range(chunk))
         return 1 + done
 
@@ -549,6 +563,7 @@ def run_monocular(
     pose_graph_every: int = 0,
     chunk: int = 0,
     device="cuda",
+    trace_begin=None,
 ):
     """Monocular VO over a sequence.  Returns (timestamps, poses (N, 4, 4),
     per-frame seconds).  ``metrics``: a ``MetricsLogger``;
@@ -568,7 +583,8 @@ def run_monocular(
     keyframe trajectory at the sequence's end: the returned poses are then
     the refined ones.  ``pose_graph_every`` = K > 0 (with ``pose_graph``)
     also refines every K promotions and writes the corrections into the live
-    keyframe ring."""
+    keyframe ring.  ``trace_begin``: called once where a trace of the run
+    may begin (``_Trajectory``)."""
     device = torch.device(device)
     srcmap = build_undistort_map(calib) if undistort and calib.distortion is not None else None
     items = list(sequence)[:max_frames]
@@ -581,7 +597,7 @@ def run_monocular(
         stream = _image_stream([it.gray_path for it in items], 1.0 if use_chunk else 1 / 255.0,
                                stream_map, loaders)
         gray, mask = next(stream)
-        out = _Trajectory(items, metrics, verbose, mono=True)
+        out = _Trajectory(items, metrics, verbose, mono=True, trace_begin=trace_begin)
         start_fi = 1
         harvester = harvest = None
         if use_chunk:
@@ -807,6 +823,7 @@ def run_kinect(
     chunk: int = 0,
     gray_cull: int = 2,
     device="cuda",
+    trace_begin=None,
 ):
     """Kinect v2 dual-camera pipeline (KinectLoader::getMappedImages,
     loader.cpp:90-101, and test/kinect-vo.cpp): undistort color and depth
@@ -825,7 +842,8 @@ def run_kinect(
     the strided depth grid with depth_K / 2**culls projects the same rays).
     ``gray_cull`` pre-culls the color stream (an approximation: registration
     then samples the strided gray with rgb_K / gray_cull); 0 or 1 disables.
-    Both are applied alike on the chunked and per-frame paths."""
+    Both are applied alike on the chunked and per-frame paths.
+    ``trace_begin``: as ``run_monocular``'s."""
     if kcalib is None:
         kcalib = KinectCalibration.kinect_v2()
     if cfg is None:
@@ -880,7 +898,7 @@ def run_kinect(
             return register(g, m, d)
 
         mapped, mask, depth, sigma = prep()
-        out = _Trajectory(items, metrics, verbose)
+        out = _Trajectory(items, metrics, verbose, trace_begin=trace_begin)
         if mode == "rgbd":
             state = rgbd_init(mapped, mask, depth, sigma, depth_K, cfg, device=device)
         else:

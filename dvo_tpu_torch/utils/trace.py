@@ -5,8 +5,9 @@ profiler's Chrome trace, and the benchmark reads the same events.
 
 One switch: tracing is on exactly while a profiler records
 (``torch._C._autograd._profiler_enabled()``).  While it is off, ``span``,
-``stage``, ``chunk`` and ``unmarked`` check that one flag and return one
-shared no-op context (``OFF``): they build nothing and call nothing else.
+``stage``, ``chunk`` and ``unmarked`` check that one flag (``stage`` also
+whether ``marked`` turned markers on) and return one shared no-op context
+(``OFF``): they build nothing and call nothing else.
 
 - ``span(name)``: a host range ``dvo.<name>`` at a boundary of the graphed
   path or the runner, once a chunk and never a frame (``dvo.chunk``,
@@ -24,6 +25,8 @@ shared no-op context (``OFF``): they build nothing and call nothing else.
   Markers are on inside it when one stream runs on a CUDA device: B
   streams replay on B CUDA streams at once, and the profiler's device
   events carry no stream to split their time by.
+- ``marked()``: markers on with no profiler recording, for a step captured
+  with its markers ahead of one.
 
 The ranges are FUNCTION-scoped ``torch.profiler`` ranges: a user-scoped
 range (``record_function``) also puts a span on the card's timeline,
@@ -41,7 +44,7 @@ import torch
 from dvo_tpu_torch.ops.cuda import _build
 
 # csrc/stage.cu's markers, in its order; the last ends a region.
-MARKERS = ("frame_build", "track", "pose", "map", "copy", "end")
+MARKERS = ("frame_build", "track", "pose", "map", "copy", "ba", "end")
 STAGES = MARKERS[:-1]
 _INDEX = {name: i for i, name in enumerate(MARKERS)}
 
@@ -128,7 +131,7 @@ class _Stage:
 
 def stage(name: str, end: bool = False):
     """The stage ``name`` of the step (module docstring)."""
-    if not _recording():
+    if not (_recording() or _local.marking):
         return OFF
     if name not in STAGES:
         raise ValueError(f"no stage {name!r}: one of {STAGES}")
@@ -166,6 +169,14 @@ def chunk(streams: int, device):
     if not _recording():
         return OFF
     return _Marking(streams == 1 and _can_mark(device), _Range("dvo.chunk"))
+
+
+def marked():
+    """Markers on inside the block whether or not a profiler records: a
+    step captured with its markers ahead of any profiler (``models/
+    graphed``: a graph with a conditional node must not be captured while
+    one records)."""
+    return _Marking(True)
 
 
 def unmarked():

@@ -245,7 +245,7 @@ def test_window_from_history_matches(pushes, m):
     jhist, jK = _ring("jax", pushes=pushes)
     thist, tK = _ring("torch", pushes=pushes)
     slots = tba.window_slots(thist, m)
-    assert slots == [int(s) for s in np.asarray(jba.window_slots(jhist, m))]
+    assert slots.tolist() == [int(s) for s in np.asarray(jba.window_slots(jhist, m))]
     jwin, twin = jba.window_from_history(jhist, jK, m), tba.window_from_history(thist, tK, m)
     for f in dataclasses.fields(tba.BAWindow):
         np.testing.assert_array_equal(getattr(twin, f.name).numpy(),
@@ -253,23 +253,28 @@ def test_window_from_history_matches(pushes, m):
 
 
 def test_refresh_head_and_write_back_match():
-    """``refresh_head`` puts the reference keyframe's current maps into its
-    slot and ``write_back`` lands refined twists and depths at the window's
-    slots, as ``dvo_tpu``'s do; neither writes into the stacks it was
-    given."""
+    """The mono step's BA write-back (``odometry._windowed_ba``: a
+    conditional region's indexed puts, ``_build.when``) lands refined
+    twists and depths at the window's slots as ``dvo_tpu``'s
+    ``write_back`` does, in the stacks it is given and nowhere else."""
     from dvo_tpu.models import history as jh
-    from dvo_tpu_torch.models import history as th
+    from dvo_tpu_torch.ops.cuda import _build
 
     jhist, _ = _ring("jax")
     thist, _ = _ring("torch")
-    before = thist.depth.clone()
     rng = np.random.default_rng(6)
     xi = rng.random((3, 6), np.float32)
     depth = rng.random((3, 16, 24), np.float32)
     jout = jh.write_back(jhist, jba.window_slots(jhist, 3), jnp.asarray(xi), jnp.asarray(depth))
-    tout = th.write_back(thist, tba.window_slots(thist, 3), torch.tensor(xi), torch.tensor(depth))
-    np.testing.assert_array_equal(tout.xi.numpy(), np.asarray(jout.xi))
-    np.testing.assert_array_equal(tout.depth.numpy(), np.asarray(jout.depth))
-    assert torch.equal(thist.depth, before) and tout.depth.data_ptr() != thist.depth.data_ptr()
-    np.testing.assert_array_equal(tout.depth[thist.head].numpy(), depth[-1])   # newest last
-    assert (tout.head, tout.count) == (thist.head, thist.count)
+    slots = tba.window_slots(thist, 3)
+    ring_xi, ring_depth, gray = thist.xi.clone(), thist.depth.clone(), thist.gray.clone()
+
+    def body(put):
+        put(ring_xi, torch.tensor(xi), slots)
+        put(ring_depth, torch.tensor(depth), slots)
+
+    _build.when(torch.tensor(True), body, "ba")
+    np.testing.assert_array_equal(ring_xi.numpy(), np.asarray(jout.xi))
+    np.testing.assert_array_equal(ring_depth.numpy(), np.asarray(jout.depth))
+    np.testing.assert_array_equal(ring_depth[thist.head].numpy(), depth[-1])   # newest last
+    assert torch.equal(thist.gray, gray)

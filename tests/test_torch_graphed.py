@@ -2,7 +2,7 @@
 where it runs its protocol (load, step, copy back, copy out) without
 capture: it must equal the eager step loop bitwise, its copy-back must
 cover every tensor of a state, the drivers must be cached along a run, and
-``cfg.ba.enabled`` must take the eager loop."""
+``cfg.ba.enabled`` must take the driver too, its BA a conditional region."""
 
 import dataclasses
 
@@ -62,12 +62,22 @@ def _mono_init(seq, seed=3):
                                generator=torch.Generator().manual_seed(seed))
 
 
-def _eager_mono(state, seq, sl, with_resets):
+def _eager_run(state, n: int, step):
+    """The eager step loop: ``n`` calls of ``step(state, i)``; returns
+    (state', results with a leading N axis)."""
+    results = []
+    for i in range(n):
+        state, res = step(state, i)
+        results.append(res)
+    return state, todo.stack_states(results)
+
+
+def _eager_mono(state, seq, sl, with_resets, cfg=CFG):
     grays, masks, K, _, resets = seq
     g, m = grays[1:][sl], masks[1:][sl]
     r = resets[sl]
-    return todo._eager_run(state, g.shape[0], lambda st, i: todo.monocular_step(
-        st, g[i], m[i], K, CFG, r[i] if with_resets else None))
+    return _eager_run(state, g.shape[0], lambda st, i: todo.monocular_step(
+        st, g[i], m[i], K, cfg, r[i] if with_resets else None))
 
 
 def _rgbd_inputs(seq):
@@ -105,7 +115,7 @@ def test_mono_driver_equals_eager_step_loop(sequence, planes):
 def test_rgbd_driver_equals_eager_step_loop(sequence):
     state, (g, m, d, s), K = _rgbd_inputs(sequence)
     st_d, res_d = todo.rgbd_run(state, g, m, d, s, K, RGBD_CFG)
-    st_e, res_e = todo._eager_run(state, N, lambda st, i: todo.rgbd_step(
+    st_e, res_e = _eager_run(state, N, lambda st, i: todo.rgbd_step(
         st, g[i], m[i], d[i], s[i], K, RGBD_CFG))
     assert same(res_d, res_e) and same(st_d, st_e)
 
@@ -208,27 +218,30 @@ def test_returned_state_is_a_copy_and_drivers_are_cached(sequence):
 
 
 def test_ba_takes_the_eager_loop(sequence, monkeypatch):
-    """With cfg.ba.enabled the chunk runs ``_eager_run`` (its step reads the
-    ring's head and count to the host) and never the driver; without BA it
-    runs the driver and never the eager loop."""
+    """With cfg.ba.enabled the chunk runs the graphed driver, as without BA
+    (the eager loop is gone: BA is a conditional region of the captured
+    step), and equals the eager step loop bitwise, BA's solves included;
+    the batched entry runs one driver per stream."""
     grays, masks, K, _, resets = sequence
     calls = []
-    eager = todo._eager_run
-    monkeypatch.setattr(todo, "_eager_run", lambda *a: calls.append("eager") or eager(*a))
     run = graphed.run
     monkeypatch.setattr(graphed, "run", lambda *a, **k: calls.append("graphed") or run(*a, **k))
     cfg_ba = dataclasses.replace(CFG, ba=dataclasses.replace(CFG.ba, enabled=True, window=2,
                                                              iterations=1))
-    _, res = todo.monocular_run(_mono_init(sequence), grays[1:5], masks[1:5], K, cfg_ba,
-                                resets[:4])
-    assert calls == ["eager"] and res.ba_window_xi.shape == (4, 2, 6)
-    assert (res.ba_cost >= 0).any()
+    assert not hasattr(todo, "_eager_run")
+    st_d, res = todo.monocular_run(_mono_init(sequence), grays[1:5], masks[1:5], K, cfg_ba,
+                                   resets[:4])
+    assert calls == ["graphed"] and res.ba_window_xi.shape == (4, 2, 6)
+    assert (res.ba_cost >= 0).any() and (res.ba_cost < 0).any()
+    st_e, res_e = _eager_mono(_mono_init(sequence), sequence, slice(0, 4), True, cfg_ba)
+    assert same(res, res_e) and same(st_d, st_e)
     calls.clear()
     todo.monocular_run(_mono_init(sequence), grays[1:5], masks[1:5], K, CFG, resets[:4])
     assert calls == ["graphed"]
     calls.clear()
     states = todo.stack_states([_mono_init(sequence)] * 2)
-    todo.monocular_run_batched(states, torch.stack([grays[1:4]] * 2),
-                               torch.stack([masks[1:4]] * 2), K, cfg_ba,
-                               torch.stack([resets[:3]] * 2))
-    assert calls == ["eager", "eager"]
+    _, res_b = todo.monocular_run_batched(states, torch.stack([grays[1:5]] * 2),
+                                          torch.stack([masks[1:5]] * 2), K, cfg_ba,
+                                          torch.stack([resets[:4]] * 2))
+    assert calls == ["graphed"]
+    assert all(same(todo.select_streams(res_b, b), res) for b in range(2))

@@ -110,7 +110,7 @@ def test_build_command_targets_sm90a_in_ignored_dir(monkeypatch):
     assert "-shared" in link and link[-len(objs):] == [str(o) for o in objs]
     assert {Path(c).name for cmd in cmds for c in cmd if c.endswith(".cu")} == {
         "gn.cu", "gn_level.cu", "epipolar.cu", "regularize.cu", "framebuild.cu", "floor.cu",
-        "stage.cu", "pose.cu"}
+        "stage.cu", "pose.cu", "graph_if.cu"}
     assert {p.name for p in _build._headers()} == {
         "dvo_kernels.h", "gn_pixel.cuh", "gn_step.cuh", "epipolar_pixel.cuh",
         "regularize_pixel.cuh", "framebuild_cull.cuh"}
@@ -346,7 +346,7 @@ def test_cpu_tensors_take_the_plain_path(name, wrapper, plain, make, rng, monkey
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert _build.LAUNCHES == {"gn": 0, "gn_step": 0, "gn_level": 0, "epipolar": 0,
                                "regularize": 0, "framebuild": 0, "regularize_cull": 0,
-                               "pose": 0}
+                               "pose": 0, "ba": 0}
 
 
 @pytest.mark.parametrize("bad,match", [

@@ -357,9 +357,10 @@ def test_ba_checkpoint_from_dvo_tpu_continues(sequence, runs_ba, tmp_path):
 
 
 def test_ba_step_adds_no_host_read(sequence, monkeypatch):
-    """A promotion with BA reads back to the host in one copy: the keyframe
-    decision with the ring's head and count (``tolist`` of one stacked
-    tensor, once), which BA's window slots need."""
+    """An eager step with BA reads one bool back to the host: whether BA is
+    due (``_build.when`` outside a capture); the window's slots are gathered
+    on the device.  The captured step reads nothing: there BA is an IF node
+    of the graph."""
     grays, masks, K = sequence
     cfg = dataclasses.replace(BA_TCFG, ba=dataclasses.replace(BA_TCFG.ba, window=1),
                               mapper=dataclasses.replace(BA_TCFG.mapper, max_forward=1))
@@ -374,5 +375,5 @@ def test_ba_step_adds_no_host_read(sequence, monkeypatch):
     _, res = todo.monocular_step(state, torch.tensor(grays[1]), torch.tensor(masks[1]),
                                  torch.tensor(K), cfg, reset_depth=torch.ones((H, W)))
     monkeypatch.undo()
-    assert reads == ["tolist"], reads
+    assert reads == ["__bool__"], reads
     assert bool(res.is_keyframe) and float(res.ba_cost) >= 0.0

@@ -110,7 +110,15 @@ for name, case in cases.items():
         for k in ("xi", "depth", "costs", "counts"):
             out[f"{name}_{k}"] = getattr(res, k).numpy()
 np.savez(os.path.join(folder, f"out{os.environ['RANK']}.npz"), **out)
+# Every rank has written its outputs before any tears the group down, and
+# none runs the C++ destructors of interpreter exit: a gloo thread still
+# joinable there ends the process in std::terminate ("terminate called
+# without an active exception"), which failed a rank that had finished.
+torch.distributed.barrier()
 torch.distributed.destroy_process_group()
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)
 """
 
 
